@@ -1,0 +1,432 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases, each printing one JSON line:
+
+1. ``device``  — the card, its power limit, torch and CUDA versions.
+2. ``build``   — build the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, in parallel) and time it.
+3. ``kernels`` — hold each kernel against its plain PyTorch version on the
+   card at the shapes the serving path of llama3.2-1b gives it, and time the
+   kernel, the plain version, one PyTorch library call computing the same
+   function (a yardstick only; the port never calls it) and the bound
+   (max of bytes / 3.35 TB/s and FLOPs / the peak for the input type).
+4. ``serve``   — full-width llama3.2-1b in bf16 with seeded random weights,
+   flash prefill: 12 requests through ``Engine`` over 8 slots; the kernels'
+   launch counts are set to 0 just before and read just after.  Then the
+   batched ragged prefill against per-prompt prefill, and a float32 pass
+   (full width, 2 layers) whose engine tokens must equal the per-prompt
+   oracle's exactly.
+
+Then it prints the card's name and power limit, one ``{"kernels": [...]}``
+line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
+check raises and exits non-zero without that line; so does a machine with
+no CUDA device, or a directory without the repository's ``src/``.
+
+``--out DIR`` also writes the compiler's register/spill report and the
+per-case kernel table there.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+#: NVIDIA H100 SXM data sheet: dense bf16 tensor-core and f32 peaks, HBM rate
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+#: (name, CUDA source, TPU kernel as file:line, TPU kernel as file::function)
+KERNELS = (
+    ("gemm", "src/repro_torch/kernels/csrc/gemm.cu",
+     "src/repro/kernels/gemm.py:37", "src/repro/kernels/gemm.py::_gemm_kernel"),
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:52",
+     "src/repro/kernels/flash_attention.py::_flash_kernel"),
+)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
+        f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+class Timer:
+    """Mean time of ``fn`` in ms over ``reps`` launches, each timed alone
+    with CUDA events after a write of 128 MiB that evicts the 50 MB L2, as
+    a serving step finds the weights cold."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                                 device="cuda")
+
+    def __call__(self, fn, reps: int = 10, warmup: int = 2) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        total = 0.0
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / reps
+
+
+def bound(flops: float, nbytes: float, dtype: str):
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# phase: kernels
+# ---------------------------------------------------------------------------
+
+def gemm_cases(torch):
+    """(label, M, K, N, dtype, b_transposed, activation, out_dtype, extras)."""
+    d, kvd, ff, vocab = 2048, 512, 8192, 128256
+    proj = [("q", d, d, None), ("k", d, kvd, None), ("v", d, kvd, None),
+            ("o", d, d, None), ("gate+silu", d, ff, "silu"),
+            ("up", d, ff, None), ("down", ff, d, None)]
+    cases = []
+    for m, phase in ((8, "decode"), (8 * 256, "prefill")):
+        for name, k, n, act in proj:
+            cases.append((f"{phase} {name}", m, k, n, torch.bfloat16, False,
+                          act, torch.bfloat16, False))
+    cases.append(("unembed (tied, B=emb.T, f32 out)", 8, d, vocab,
+                  torch.bfloat16, True, None, torch.float32, False))
+    for act in (None, "relu", "gelu", "silu", "tanh"):
+        cases.append((f"f32 decode q act={act} +C +bias alpha beta", 8, d, d,
+                      torch.float32, False, act, torch.float32, True))
+    cases.append(("ragged edges 37x100x77 bf16 +C +bias", 37, 100, 77,
+                  torch.bfloat16, False, "gelu", torch.bfloat16, True))
+    cases.append(("ragged edges 37x100x77 bf16 B=transposed", 37, 100, 77,
+                  torch.bfloat16, True, None, torch.float32, False))
+    cases.append(("ragged edges 37x100x77 f32 B=transposed +C +bias", 37, 100,
+                  77, torch.float32, True, "tanh", torch.float32, True))
+    return cases
+
+
+def run_gemm_case(torch, timer, case, gen):
+    from repro_torch.core.tile_config import gemm_tiles
+    from repro_torch.kernels.gemm import gemm_cuda
+    from repro_torch.kernels.ref import gemm_ref
+    label, m, k, n, dtype, b_t, act, out_dtype, extras = case
+    a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    if b_t:   # (N, K) storage read as its transpose, like embedding.t()
+        b = (torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5
+             ).to(dtype).t()
+    else:
+        b = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+             ).to(dtype)
+    kw = dict(activation=act, out_dtype=out_dtype)
+    c = None
+    if extras:
+        c = torch.randn(m, n, generator=gen, device="cuda")
+        kw.update(alpha=0.5, beta=0.25,
+                  bias=torch.randn(n, generator=gen, device="cuda"))
+    tile = gemm_tiles(dtype, m, k, n)
+    out = gemm_cuda(a, b, c, config=tile, **kw)
+    ref = gemm_ref(a, b, c, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    # bf16 output: one bf16 ulp (2**-8 relative) of values up to ~4;
+    # f32 output: summation order over K only.
+    tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-4
+    ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+    in_bytes = a.element_size()
+    nbytes = (m * k + k * n) * in_bytes + m * n * out.element_size()
+    if extras:
+        nbytes += m * n * 4 + n * 4
+    b_ms, b_by = bound(2.0 * m * n * k, nbytes, str(dtype).split(".")[1])
+    lib = (lambda: torch.matmul(a, b))
+    return {
+        "name": "gemm", "replaces": KERNELS[0][3], "case": label,
+        "shape": [m, k, n],
+        "dtype": str(dtype).split(".")[1], "tile": tile.label,
+        "max_abs_err": err, "tol": f"atol=rtol={tol}", "ok": bool(ok),
+        "kernel_ms": timer(lambda: gemm_cuda(a, b, c, config=tile, **kw)),
+        "plain_ms": timer(lambda: gemm_ref(a, b, c, **kw)),
+        "library_ms": timer(lib), "library": "torch.matmul",
+        "bound_ms": b_ms, "bound_by": b_by,
+        "main_path": not label.startswith(("f32", "ragged")),
+    }
+
+
+def flash_cases():
+    """(label, B, S, Skv, H, KV, d, dtype, kv_start)."""
+    ragged = [0, 17, 100, 255, 256, 3, 64, 200]     # 256: fully masked row
+    return [
+        ("prefill (8,256,32,64) ragged + fully masked row", 8, 256, 256, 32, 8,
+         64, "bfloat16", ragged),
+        ("non-divisible S=200 + fully masked row", 8, 200, 200, 32, 8, 64,
+         "bfloat16", [0, 5, 199, 200, 1, 63, 64, 150]),
+        ("causal S=100 < Skv=256", 2, 100, 256, 32, 8, 64, "bfloat16", [0, 40]),
+        ("f32 (4,300,32,64) ragged", 4, 300, 300, 32, 8, 64, "float32",
+         [0, 7, 150, 300]),
+    ]
+
+
+def run_flash_case(torch, timer, case, gen):
+    import torch.nn.functional as F
+    from repro_torch.core.tile_config import flash_tiles
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+    label, b, s, skv, h, kvh, d, dtype, ks = case
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, skv, kvh, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, skv, kvh, d, generator=gen, device="cuda").to(dt)
+    kv_start = torch.tensor(ks, dtype=torch.int32, device="cuda")
+    tile = flash_tiles(s, skv, d)
+    run = lambda: flash_attention_cuda(q, k, v, bq=tile.bq, bk=tile.bk,
+                                       causal=True, kv_start=kv_start)
+    out = run()
+    ref = flash_attention_ref(q, k, v, causal=True, kv_start=kv_start)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out.float()).all())
+    err = (out.float() - ref.float()).abs().max().item()
+    # bf16 output: one bf16 ulp; f32: exp and summation order only.
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    ok = finite and torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+    # work this data needs: unmasked (query, key) pairs, 4*d FLOP each
+    pairs = 0
+    for start in ks:
+        for r in range(s):
+            hi = min(skv, r + (skv - s) + 1)
+            pairs += max(0, hi - start)
+    flops = 4.0 * d * pairs * h
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * 4
+    b_ms, b_by = bound(flops, nbytes, dtype)
+    cols = torch.arange(skv, device="cuda")
+    rows = torch.arange(s, device="cuda")
+    mask = ((cols[None, :] <= rows[:, None] + (skv - s))[None]
+            & (cols[None, None, :] >= kv_start[:, None, None]))[:, None]
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+    lib = (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    return {
+        "name": "flash_attention", "replaces": KERNELS[1][3], "case": label,
+        "shape": [[b, s, h, d], [b, skv, kvh, d]], "dtype": dtype,
+        "tile": tile.label, "max_abs_err": err, "tol": f"atol=rtol={tol}",
+        "finite": finite, "ok": bool(ok),
+        "kernel_ms": timer(run),
+        "plain_ms": timer(lambda: flash_attention_ref(
+            q, k, v, causal=True, kv_start=kv_start)),
+        "library_ms": timer(lib), "library": "F.scaled_dot_product_attention",
+        "bound_ms": b_ms, "bound_by": b_by,
+        "main_path": label.startswith("prefill"),
+    }
+
+
+def phase_kernels(torch, out_dir):
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = [run_gemm_case(torch, timer, c, gen) for c in gemm_cases(torch)]
+    rows += [run_flash_case(torch, timer, c, gen) for c in flash_cases()]
+    emit({"phase": "kernels", "cases": rows})
+    if out_dir:
+        with open(os.path.join(out_dir, "kernel_cases.json"), "w") as f:
+            json.dump(rows, f, indent=1)
+    bad = [r["case"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase: serve
+# ---------------------------------------------------------------------------
+
+def phase_serve(torch):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig, generate_per_prompt
+    from repro_torch.serve.engine import _bucket_len
+
+    name = torch.cuda.get_device_name(0)
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="bfloat16",
+                              attention_impl="flash")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(5, 301, size=12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    max_new = 32
+    eng = Engine(model, params, ServeConfig(max_batch=8, max_len=1024,
+                                            decode_chunk=8, profile=True))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = eng.stats()
+    assert all(len(o) == max_new for o in outs), [len(o) for o in outs]
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
+    assert launches["gemm"] > 0 and launches["flash_attention"] > 0, launches
+    assert st["device_transfers"] == st["chunks"], st
+    assert st["admissions"] >= 12 and st["admission_prefills"] >= 2, st
+    serve = {
+        "phase": "serve", "card": name, "model": cfg.name, "dtype": cfg.dtype,
+        "params": model.param_count(), "init_seconds": init_s,
+        "requests": len(prompts), "prompt_tokens": int(lens.sum()),
+        "max_new": max_new, "tokens_generated": st["tokens_generated"],
+        "chunks": st["chunks"], "device_transfers": st["device_transfers"],
+        "admission_prefills": st["admission_prefills"],
+        "preemptions": st["preemptions"],
+        "prefill_seconds": st["prefill_seconds"],
+        "decode_seconds": st["decode_seconds"], "wall_seconds": wall,
+        "prefill_tok_per_s": float(lens.sum()) / st["prefill_seconds"],
+        "decode_tok_per_s": st["tokens_generated"] / st["decode_seconds"],
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+    # batched ragged prefill (the engine's layout) vs per-prompt prefill
+    first = prompts[:8]
+    plen = _bucket_len(max(len(p) for p in first))
+    toks = np.zeros((8, plen), np.int32)
+    ks = np.zeros(8, np.int32)
+    for i, p in enumerate(first):
+        toks[i, plen - len(p):] = p
+        ks[i] = plen - len(p)
+    batch = {"tokens": torch.from_numpy(toks).cuda(),
+             "kv_start": torch.from_numpy(ks).cuda()}
+    with torch.no_grad():
+        batched, _ = model.prefill(params, batch,
+                                   model.init_cache(8, plen, device="cuda"))
+        solo = torch.cat([model.prefill(
+            params, {"tokens": torch.tensor([p], dtype=torch.int32,
+                                            device="cuda")},
+            model.init_cache(1, len(p), device="cuda"))[0] for p in first])
+    diff = (batched - solo).abs().max().item()
+    agree = (batched.argmax(-1) == solo.argmax(-1)).float().mean().item()
+    # bf16 keeps 8 mantissa bits: a one-ulp difference in one row's attention
+    # output (the flash tiles fall differently for padded and solo rows)
+    # propagates through 16 layers; the logits' std here is ~0.9.
+    tol = 0.15
+    serve.update(prefill_batched_vs_solo_max_abs=diff, prefill_tol=tol,
+                 prefill_argmax_agree=agree)
+    assert torch.isfinite(batched).all() and diff <= tol, (diff, tol)
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # float32 pass: full width, 2 layers, tokens exact against the oracle
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=2)
+    m32 = build_model(cfg32)
+    p32 = m32.init(seed=1, device="cuda")
+    prompts32 = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+                 for n in (5, 37, 11, 200, 64, 130)]
+    eng32 = Engine(m32, p32, ServeConfig(max_batch=4, max_len=512,
+                                         decode_chunk=8))
+    got = eng32.generate(prompts32, 8)
+    want = generate_per_prompt(m32, p32, prompts32, 8, max_len=512)
+    assert got == want, (got, want)
+    serve["f32_pass"] = {"layers": 2, "requests": len(prompts32),
+                         "max_new": 8, "tokens_equal_oracle": got == want}
+    emit(serve)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+
+def summarize(rows, launches):
+    """One entry per kernel: its main-path cases summed (each shape once)."""
+    out = []
+    for kname, route_src, repl, repl_fn in KERNELS:
+        mine = [r for r in rows if r["name"] == kname and r["main_path"]]
+        t_ops = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+        t_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
+        out.append({
+            "name": kname, "route": "cuda", "source": route_src,
+            "replaces": repl, "replaces_function": repl_fn,
+            "launches": launches[kname],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["name"] == kname),
+            "cases": len(mine),
+            "ms": sum(r["kernel_ms"] for r in mine),
+            "kernel_ms": sum(r["kernel_ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": t_ops + t_bytes,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": sum(r["library_ms"] for r in mine),
+        })
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="directory for the compiler report and case table")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build   # fails outside the repository
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    card = smi()
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": card, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "dir": str(_build.BUILD_DIR)})
+    if args.out:
+        for name, log in _build.PTXAS_LOG.items():
+            with open(os.path.join(args.out, f"ptxas_{name}.log"), "w") as f:
+                f.write(log)
+    rows = phase_kernels(torch, args.out)
+    launches = phase_serve(torch)
+    print(card, flush=True)
+    emit({"kernels": summarize(rows, launches)})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,159 @@
+"""The port's plain kernel versions against the JAX oracles and the Pallas
+kernels in interpret mode, on the same numpy-seeded inputs.
+
+Tolerances: float32 atol=rtol=1e-5 (summation order only); bfloat16 outputs
+atol=rtol=2e-2 (one bf16 ulp: the two sides round the same f32 value after
+summing in different orders).  The CUDA kernels themselves are held against
+these plain versions on the card by ``tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.tile_config import TileConfig as JaxTile  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro_torch.core.tile_config import (  # noqa: E402
+    H100_FLASH_TILES, H100_GEMM_TILES, TileConfig, flash_tiles, gemm_tiles)
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.models.params import params_from_numpy  # noqa: E402
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+ACTIVATIONS = [None, "relu", "gelu", "silu", "tanh"]
+
+
+def _both(x_np, dtype):
+    """The same values as a JAX array and a torch CPU tensor (bf16 bit for bit)."""
+    j = jnp.asarray(x_np).astype(dtype)
+    return j, params_from_numpy({"x": np.asarray(j)}, device="cpu")["x"]
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# GEMM
+# ---------------------------------------------------------------------------
+
+SHAPES = [(8, 16, 8), (33, 65, 17), (64, 128, 96), (1, 256, 7)]
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_gemm_ref_matches_jax_oracle_and_pallas(m, k, n, dtype):
+    rng = np.random.default_rng(m * 1000 + k)
+    ja, ta = _both(rng.standard_normal((m, k)), dtype)
+    jb, tb = _both(rng.standard_normal((k, n)), dtype)
+    got = ref.gemm_ref(ta, tb)
+    tol = F32 if dtype == jnp.float32 else BF16
+    np.testing.assert_allclose(_np(got), _np(jax_ref.gemm_ref(ja, jb)), **tol)
+    pallas = jax_ops.gemm(ja, jb, config=JaxTile(16, 32, 16),
+                          backend=jax_ops.BACKEND_PALLAS_INTERPRET)
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+    assert got.dtype == (torch.float32 if dtype == jnp.float32 else torch.bfloat16)
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_gemm_epilogue_matches_jax(activation, dtype):
+    """alpha, beta*C, bias, activation (gelu is the tanh form), in order."""
+    rng = np.random.default_rng(7)
+    m, k, n = 20, 48, 24
+    ja, ta = _both(rng.standard_normal((m, k)), dtype)
+    jb, tb = _both(rng.standard_normal((k, n)), dtype)
+    jc, tc = _both(rng.standard_normal((m, n)), dtype)
+    jbias, tbias = _both(rng.standard_normal(n), dtype)
+    kw = dict(alpha=0.75, beta=-0.5, activation=activation)
+    tol = F32 if dtype == jnp.float32 else BF16
+    got = ref.gemm_ref(ta, tb, tc, bias=tbias, **kw)
+    want = jax_ref.gemm_ref(ja, jb, jc, bias=jbias, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    pallas = jax_ops.gemm(ja, jb, jc, config=JaxTile(16, 16, 16),
+                          backend=jax_ops.BACKEND_PALLAS_INTERPRET,
+                          bias=jbias, **kw)
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+
+
+def test_gemm_bf16_in_f32_out_and_transposed_b():
+    """The tied unembed: bf16 x (a transposed view), f32 out."""
+    rng = np.random.default_rng(11)
+    ja, ta = _both(rng.standard_normal((5, 64)), jnp.bfloat16)
+    jemb, temb = _both(rng.standard_normal((40, 64)), jnp.bfloat16)
+    got = ops.gemm(ta, temb.t(), out_dtype=torch.float32)
+    want = jax_ref.gemm_ref(ja, jemb.T, out_dtype=jnp.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
+def test_gemm_rejects_unknown_activation_and_bad_shapes():
+    a, b = torch.ones(2, 3), torch.ones(3, 4)
+    with pytest.raises(ValueError):
+        ref.gemm_ref(a, b, activation="swish")
+    with pytest.raises(ValueError):
+        ref.gemm_ref(a, torch.ones(4, 4))
+
+
+def test_tile_table_covers_every_m_and_names_instantiated_tiles():
+    for dtype, rows in H100_GEMM_TILES.items():
+        for m in (1, 8, 16, 17, 256, 257, 4096):
+            assert gemm_tiles(dtype, m, 2048, 2048) in [t for _, t in rows]
+    assert gemm_tiles(torch.bfloat16, 8, 1, 1) == TileConfig(16, 64, 64)
+    for s in (1, 32, 33, 4096):
+        assert flash_tiles(s, s, 64) in [t for _, t in H100_FLASH_TILES]
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (B, S, Skv, H, KV, d, kv_start)
+    (2, 64, 64, 4, 4, 16, None),              # MHA, block multiples
+    (2, 64, 64, 8, 2, 16, None),              # GQA
+    (2, 24, 64, 4, 2, 16, None),              # causal with S != S_kv
+    (3, 40, 40, 4, 2, 16, [0, 5, 17]),        # ragged kv_start
+    (2, 37, 37, 4, 1, 32, [3, 0]),            # non-divisible lengths
+    (3, 16, 16, 4, 2, 16, [0, 16, 9]),        # a fully masked row
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[
+    "mha", "gqa", "s_ne_skv", "ragged", "non_divisible", "fully_masked"])
+def test_flash_ref_matches_pallas_interpret(case):
+    b, s, skv, h, kvh, d, ks = case
+    rng = np.random.default_rng(s * 100 + skv)
+    jq, tq = _both(rng.standard_normal((b, s, h, d)), jnp.float32)
+    jk, tk = _both(rng.standard_normal((b, skv, kvh, d)), jnp.float32)
+    jv, tv = _both(rng.standard_normal((b, skv, kvh, d)), jnp.float32)
+    jks = None if ks is None else jnp.asarray(ks, jnp.int32)
+    tks = None if ks is None else torch.tensor(ks, dtype=torch.int32)
+    got = ref.flash_attention_ref(tq, tk, tv, causal=True, kv_start=tks)
+    want = jax_flash(jq, jk, jv, causal=True, bq=16, bk=16, interpret=True,
+                     kv_start=jks)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+    assert np.isfinite(_np(got)).all()
+    if ks is not None and max(ks) >= skv:      # l == 0 divides by 1: zeros
+        assert not _np(got)[int(np.argmax(ks))].any()
+    # the GQA front end takes the plain version for CPU tensors
+    front = flash_attention(tq, tk, tv, bq=64, bk=64, kv_start=tks)
+    assert torch.equal(front, got)
+
+
+def test_flash_ref_without_kv_start_is_softmax_attention():
+    rng = np.random.default_rng(5)
+    jq, tq = _both(rng.standard_normal((2, 12, 4, 8)), jnp.bfloat16)
+    jk, tk = _both(rng.standard_normal((2, 20, 2, 8)), jnp.bfloat16)
+    jv, tv = _both(rng.standard_normal((2, 20, 2, 8)), jnp.bfloat16)
+    got = ref.flash_attention_ref(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(_np(got), _np(jax_ref.attention_ref(jq, jk, jv)),
+                               **BF16)
+    np.testing.assert_allclose(_np(ref.attention_ref(tq, tk, tv)), _np(got),
+                               **BF16)
