@@ -9,16 +9,23 @@ Phases, each printing one JSON line:
 2. ``build``   — build the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and time it.
 3. ``kernels`` — hold each kernel against its plain PyTorch version on the
-   card at the shapes the serving path of llama3.2-1b gives it, and time the
-   kernel, the plain version, one PyTorch library call computing the same
-   function (a yardstick only; the port never calls it) and the bound
-   (max of bytes / 3.35 TB/s and FLOPs / the peak for the input type).
+   card at the shapes the serving path of llama3.2-1b gives it and at the
+   edges of each GEMM path (decode M = 1..16, split-K with C and bias, the
+   K-major unembed, ragged prefill M, operands only WMMA takes), launch each
+   GEMM twice and require the same bits, require decode rows computed at
+   M = 8 to equal the same rows at M = 1 bit for bit, and time the kernel,
+   the plain version, one PyTorch library call computing the same function
+   (a yardstick only; the port never calls it) and the bound (max of bytes
+   / 3.35 TB/s and FLOPs / the peak for the input type); the kernel and
+   the library call are timed again by a device-only timer (``Timer``).
+   Each row names the GEMM path it took and its share of bound.
 4. ``serve``   — full-width llama3.2-1b in bf16 with seeded random weights,
    flash prefill: 12 requests through ``Engine`` over 8 slots; the kernels'
-   launch counts are set to 0 just before and read just after.  Then the
-   batched ragged prefill against per-prompt prefill, and a float32 pass
-   (full width, 2 layers) whose engine tokens must equal the per-prompt
-   oracle's exactly.
+   launch counts (the GEMM's by path: every product must go through the
+   decode or the wgmma kernel) are set to 0 just before and read just
+   after.  Then the batched ragged prefill against per-prompt prefill, and a
+   float32 pass (full width, 2 layers) whose engine tokens must equal the
+   per-prompt oracle's exactly.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -71,13 +78,28 @@ def smi() -> str:
 
 class Timer:
     """Mean time of ``fn`` in ms over ``reps`` launches, each timed alone
-    with CUDA events after a write of 128 MiB that evicts the 50 MB L2, as
-    a serving step finds the weights cold."""
+    with CUDA events after a flush of the 50 MB L2, as a serving step finds
+    the weights cold.
 
-    def __init__(self, torch):
+    The default (``kernel_ms``, ``plain_ms``, ``library_ms``) flushes with a
+    write of 128 MiB and enqueues ``fn`` right after: L2 is left full of
+    dirty lines, whose write-back competes with the launch's reads, and the
+    events include whatever host time the device waits for.
+    ``device_only=True`` (``kernel_device_ms``, ``library_device_ms``)
+    flushes with a read of 128 MiB (clean lines, as the previous layers'
+    weight reads leave L2) and spins the device ~1 ms
+    (``torch.cuda._sleep``) before the start event, long enough for the
+    host to enqueue ``fn``: the events then bracket the device's work only.
+    """
+
+    SLEEP_CYCLES = 2_000_000
+
+    def __init__(self, torch, device_only: bool = False):
         self.torch = torch
-        self.flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+        self.device_only = device_only
+        self.flush = torch.zeros(32 * 1024 * 1024, dtype=torch.float32,
                                  device="cuda")
+        self.sink = torch.zeros((), dtype=torch.float32, device="cuda")
 
     def __call__(self, fn, reps: int = 10, warmup: int = 2) -> float:
         torch = self.torch
@@ -85,7 +107,11 @@ class Timer:
             fn()
         total = 0.0
         for _ in range(reps):
-            self.flush.zero_()
+            if self.device_only:
+                torch.sum(self.flush, dim=0, out=self.sink)
+                torch.cuda._sleep(self.SLEEP_CYCLES)
+            else:
+                self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -108,35 +134,48 @@ def bound(flops: float, nbytes: float, dtype: str):
 # ---------------------------------------------------------------------------
 
 def gemm_cases(torch):
-    """(label, M, K, N, dtype, b_transposed, activation, out_dtype, extras)."""
+    """(label, M, K, N, dtype, b_transposed, activation, out_dtype, extras,
+    main_path).  The main path's shapes first, each once; then the edges of
+    the decode and wgmma paths and the WMMA / FMA kernels."""
     d, kvd, ff, vocab = 2048, 512, 8192, 128256
+    bf, f32 = torch.bfloat16, torch.float32
     proj = [("q", d, d, None), ("k", d, kvd, None), ("v", d, kvd, None),
             ("o", d, d, None), ("gate+silu", d, ff, "silu"),
             ("up", d, ff, None), ("down", ff, d, None)]
     cases = []
     for m, phase in ((8, "decode"), (8 * 256, "prefill")):
         for name, k, n, act in proj:
-            cases.append((f"{phase} {name}", m, k, n, torch.bfloat16, False,
-                          act, torch.bfloat16, False))
-    cases.append(("unembed (tied, B=emb.T, f32 out)", 8, d, vocab,
-                  torch.bfloat16, True, None, torch.float32, False))
+            cases.append((f"{phase} {name}", m, k, n, bf, False, act, bf,
+                          False, True))
+    cases.append(("unembed (tied, B=emb.T, f32 out)", 8, d, vocab, bf, True,
+                  None, f32, False, True))
+    for (name, k, n) in (("k/v", d, kvd), ("down", ff, d)):
+        for m in (1, 3, 8, 16):
+            cases.append((f"decode edge {name} M={m} silu", m, k, n, bf,
+                          False, "silu", bf, False, False))
+            cases.append((f"decode edge {name} M={m} f32 out", m, k, n, bf,
+                          False, None, f32, False, False))
+    cases.append(("decode edge split-K down +C +bias alpha beta", 8, ff, d,
+                  bf, False, "silu", bf, True, False))
+    cases.append(("prefill edge M=1800 N=512", 1800, d, kvd, bf, False, None,
+                  bf, False, False))
+    cases.append(("prefill edge M=1800 +C +bias, f32 out", 1800, d, d, bf,
+                  False, "gelu", f32, True, False))
+    cases.append(("prefill edge K-major B (scoring unembed layout)", 2048, d,
+                  4096, bf, True, None, f32, False, False))
     for act in (None, "relu", "gelu", "silu", "tanh"):
         cases.append((f"f32 decode q act={act} +C +bias alpha beta", 8, d, d,
-                      torch.float32, False, act, torch.float32, True))
+                      f32, False, act, f32, True, False))
     cases.append(("ragged edges 37x100x77 bf16 +C +bias", 37, 100, 77,
-                  torch.bfloat16, False, "gelu", torch.bfloat16, True))
+                  bf, False, "gelu", bf, True, False))
     cases.append(("ragged edges 37x100x77 bf16 B=transposed", 37, 100, 77,
-                  torch.bfloat16, True, None, torch.float32, False))
+                  bf, True, None, f32, False, False))
     cases.append(("ragged edges 37x100x77 f32 B=transposed +C +bias", 37, 100,
-                  77, torch.float32, True, "tanh", torch.float32, True))
+                  77, f32, True, "tanh", f32, True, False))
     return cases
 
 
-def run_gemm_case(torch, timer, case, gen):
-    from repro_torch.core.tile_config import gemm_tiles
-    from repro_torch.kernels.gemm import gemm_cuda
-    from repro_torch.kernels.ref import gemm_ref
-    label, m, k, n, dtype, b_t, act, out_dtype, extras = case
+def gemm_operands(torch, gen, m, k, n, dtype, b_t):
     a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     if b_t:   # (N, K) storage read as its transpose, like embedding.t()
         b = (torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5
@@ -144,6 +183,15 @@ def run_gemm_case(torch, timer, case, gen):
     else:
         b = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
              ).to(dtype)
+    return a, b
+
+
+def run_gemm_case(torch, timers, case, gen):
+    from repro_torch.core.tile_config import gemm_tiles
+    from repro_torch.kernels.gemm import gemm_cuda
+    from repro_torch.kernels.ref import gemm_ref
+    label, m, k, n, dtype, b_t, act, out_dtype, extras, main = case
+    a, b = gemm_operands(torch, gen, m, k, n, dtype, b_t)
     kw = dict(activation=act, out_dtype=out_dtype)
     c = None
     if extras:
@@ -151,9 +199,14 @@ def run_gemm_case(torch, timer, case, gen):
         kw.update(alpha=0.5, beta=0.25,
                   bias=torch.randn(n, generator=gen, device="cuda"))
     tile = gemm_tiles(dtype, m, k, n)
+    before = dict(gemm_cuda.launches_by_path)
     out = gemm_cuda(a, b, c, config=tile, **kw)
+    path = [p for p, v in gemm_cuda.launches_by_path.items()
+            if v != before[p]][0]
+    again = gemm_cuda(a, b, c, config=tile, **kw)
     ref = gemm_ref(a, b, c, **kw)
     torch.cuda.synchronize()
+    same_bits = bool(torch.equal(out, again))
     err = (out.float() - ref.float()).abs().max().item()
     # bf16 output: one bf16 ulp (2**-8 relative) of values up to ~4;
     # f32 output: summation order over K only.
@@ -164,18 +217,49 @@ def run_gemm_case(torch, timer, case, gen):
     if extras:
         nbytes += m * n * 4 + n * 4
     b_ms, b_by = bound(2.0 * m * n * k, nbytes, str(dtype).split(".")[1])
-    lib = (lambda: torch.matmul(a, b))
+    timer, device_timer = timers
+    kernel = lambda: gemm_cuda(a, b, c, config=tile, **kw)
+    library = lambda: torch.matmul(a, b)
+    kernel_ms, kernel_device_ms = timer(kernel), device_timer(kernel)
     return {
         "name": "gemm", "replaces": KERNELS[0][3], "case": label,
-        "shape": [m, k, n],
-        "dtype": str(dtype).split(".")[1], "tile": tile.label,
-        "max_abs_err": err, "tol": f"atol=rtol={tol}", "ok": bool(ok),
-        "kernel_ms": timer(lambda: gemm_cuda(a, b, c, config=tile, **kw)),
+        "shape": [m, k, n], "dtype": str(dtype).split(".")[1],
+        "tile": tile.label, "schedule": tile.schedule, "path": path,
+        "max_abs_err": err, "tol": f"atol=rtol={tol}",
+        "same_bits_twice": same_bits, "ok": bool(ok) and same_bits,
+        "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
         "plain_ms": timer(lambda: gemm_ref(a, b, c, **kw)),
-        "library_ms": timer(lib), "library": "torch.matmul",
-        "bound_ms": b_ms, "bound_by": b_by,
-        "main_path": not label.startswith(("f32", "ragged")),
+        "library_ms": timer(library),
+        "library_device_ms": device_timer(library),
+        "library": "torch.matmul",
+        "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / kernel_ms,
+        "share_of_bound_device": b_ms / kernel_device_ms,
+        "main_path": main,
     }
+
+
+def decode_batch_invariance(torch, gen):
+    """Decode rows computed at M = 8 equal the same rows computed alone
+    (M = 1), bit for bit (bf16), at every decode shape of the main path."""
+    from repro_torch.core.tile_config import gemm_tiles
+    from repro_torch.kernels.gemm import gemm_cuda
+    rows = []
+    for name, k, n, b_t, act, out_dtype in (
+            ("q/o", 2048, 2048, False, None, torch.bfloat16),
+            ("k/v", 2048, 512, False, None, torch.bfloat16),
+            ("gate+silu", 2048, 8192, False, "silu", torch.bfloat16),
+            ("down", 8192, 2048, False, None, torch.bfloat16),
+            ("unembed", 2048, 128256, True, None, torch.float32)):
+        a, b = gemm_operands(torch, gen, 8, k, n, torch.bfloat16, b_t)
+        run = lambda x: gemm_cuda(x, b, config=gemm_tiles(
+            torch.bfloat16, x.shape[0], k, n), activation=act,
+            out_dtype=out_dtype)
+        batch = run(a)
+        solo = torch.cat([run(a[i:i + 1]) for i in range(8)])
+        torch.cuda.synchronize()
+        rows.append({"case": f"decode {name} M=8 vs M=1", "shape": [8, k, n],
+                     "bit_equal": bool(torch.equal(batch, solo))})
+    return rows
 
 
 def flash_cases():
@@ -192,7 +276,7 @@ def flash_cases():
     ]
 
 
-def run_flash_case(torch, timer, case, gen):
+def run_flash_case(torch, timers, case, gen):
     import torch.nn.functional as F
     from repro_torch.core.tile_config import flash_tiles
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -231,33 +315,46 @@ def run_flash_case(torch, timer, case, gen):
     kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
     vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
     lib = (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    timer, device_timer = timers
+    kernel_ms, kernel_device_ms = timer(run), device_timer(run)
     return {
         "name": "flash_attention", "replaces": KERNELS[1][3], "case": label,
         "shape": [[b, s, h, d], [b, skv, kvh, d]], "dtype": dtype,
         "tile": tile.label, "max_abs_err": err, "tol": f"atol=rtol={tol}",
-        "finite": finite, "ok": bool(ok),
-        "kernel_ms": timer(run),
+        "path": "flash", "finite": finite, "ok": bool(ok),
+        "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
         "plain_ms": timer(lambda: flash_attention_ref(
             q, k, v, causal=True, kv_start=kv_start)),
-        "library_ms": timer(lib), "library": "F.scaled_dot_product_attention",
-        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer(lib), "library_device_ms": device_timer(lib),
+        "library": "F.scaled_dot_product_attention",
+        "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / kernel_ms,
+        "share_of_bound_device": b_ms / kernel_device_ms,
         "main_path": label.startswith("prefill"),
     }
 
 
 def phase_kernels(torch, out_dir):
-    timer = Timer(torch)
+    timers = (Timer(torch), Timer(torch, device_only=True))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = [run_gemm_case(torch, timer, c, gen) for c in gemm_cases(torch)]
-    rows += [run_flash_case(torch, timer, c, gen) for c in flash_cases()]
-    emit({"phase": "kernels", "cases": rows})
+    rows = [run_gemm_case(torch, timers, c, gen) for c in gemm_cases(torch)]
+    rows += [run_flash_case(torch, timers, c, gen) for c in flash_cases()]
+    invariance = decode_batch_invariance(torch, gen)
+    emit({"phase": "kernels", "cases": rows, "batch_invariance": invariance})
     if out_dir:
         with open(os.path.join(out_dir, "kernel_cases.json"), "w") as f:
-            json.dump(rows, f, indent=1)
+            json.dump({"cases": rows, "batch_invariance": invariance}, f,
+                      indent=1)
     bad = [r["case"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+    bad = [r["case"] for r in invariance if not r["bit_equal"]]
+    if bad:
+        raise AssertionError(f"decode rows differ between M = 8 and 1: {bad}")
+    slow = [r["case"] for r in rows if r["name"] == "gemm" and r["main_path"]
+            and r["path"] not in ("decode", "wgmma")]
+    if slow:
+        raise AssertionError(f"main-path GEMM shapes off the new kernels: {slow}")
     return rows
 
 
@@ -297,10 +394,14 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    gemm_paths = kernels.gemm_launches_by_path()
     st = eng.stats()
     assert all(len(o) == max_new for o in outs), [len(o) for o in outs]
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
     assert launches["gemm"] > 0 and launches["flash_attention"] > 0, launches
+    # every bf16 product of the serve path went through the new kernels
+    assert gemm_paths["decode"] > 0 and gemm_paths["wgmma"] > 0, gemm_paths
+    assert gemm_paths["wmma"] == 0 and gemm_paths["fma"] == 0, gemm_paths
     assert st["device_transfers"] == st["chunks"], st
     assert st["admissions"] >= 12 and st["admission_prefills"] >= 2, st
     serve = {
@@ -315,7 +416,7 @@ def phase_serve(torch):
         "decode_seconds": st["decode_seconds"], "wall_seconds": wall,
         "prefill_tok_per_s": float(lens.sum()) / st["prefill_seconds"],
         "decode_tok_per_s": st["tokens_generated"] / st["decode_seconds"],
-        "launches": launches,
+        "launches": launches, "gemm_launches_by_path": gemm_paths,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
 
@@ -362,33 +463,47 @@ def phase_serve(torch):
     serve["f32_pass"] = {"layers": 2, "requests": len(prompts32),
                          "max_new": 8, "tokens_equal_oracle": got == want}
     emit(serve)
-    return launches
+    return launches, gemm_paths
 
 
 # ---------------------------------------------------------------------------
 
 
-def summarize(rows, launches):
-    """One entry per kernel: its main-path cases summed (each shape once)."""
+def _sums(mine):
+    t_ops = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
+    t_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
+    ms = sum(r["kernel_ms"] for r in mine)
+    device_ms = sum(r["kernel_device_ms"] for r in mine)
+    return {"cases": len(mine), "ms": ms, "device_ms": device_ms,
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "library_ms": sum(r["library_ms"] for r in mine),
+            "library_device_ms": sum(r["library_device_ms"] for r in mine),
+            "bound_ms": t_ops + t_bytes,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound": (t_ops + t_bytes) / ms if ms else None,
+            "share_of_bound_device": (t_ops + t_bytes) / device_ms
+            if device_ms else None}
+
+
+def summarize(rows, launches, gemm_paths):
+    """One entry per kernel: its main-path cases summed (each shape once),
+    and for the GEMM the same sums per path (decode, wgmma) with the serve
+    phase's launches by path."""
     out = []
     for kname, route_src, repl, repl_fn in KERNELS:
         mine = [r for r in rows if r["name"] == kname and r["main_path"]]
-        t_ops = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
-        t_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
-        out.append({
-            "name": kname, "route": "cuda", "source": route_src,
-            "replaces": repl, "replaces_function": repl_fn,
-            "launches": launches[kname],
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["name"] == kname),
-            "cases": len(mine),
-            "ms": sum(r["kernel_ms"] for r in mine),
-            "kernel_ms": sum(r["kernel_ms"] for r in mine),
-            "plain_ms": sum(r["plain_ms"] for r in mine),
-            "bound_ms": t_ops + t_bytes,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": sum(r["library_ms"] for r in mine),
-        })
+        entry = {"name": kname, "route": "cuda", "source": route_src,
+                 "replaces": repl, "replaces_function": repl_fn,
+                 "launches": launches[kname],
+                 "max_abs_err": max(r["max_abs_err"] for r in rows
+                                    if r["name"] == kname)}
+        sums = _sums(mine)
+        entry.update(sums, kernel_ms=sums["ms"])
+        if kname == "gemm":
+            entry["launches_by_path"] = gemm_paths
+            entry["paths"] = {p: _sums([r for r in mine if r["path"] == p])
+                              for p in sorted({r["path"] for r in mine})}
+        out.append(entry)
     return out
 
 
@@ -420,9 +535,9 @@ def main(argv=None) -> int:
             with open(os.path.join(args.out, f"ptxas_{name}.log"), "w") as f:
                 f.write(log)
     rows = phase_kernels(torch, args.out)
-    launches = phase_serve(torch)
+    launches, gemm_paths = phase_serve(torch)
     print(card, flush=True)
-    emit({"kernels": summarize(rows, launches)})
+    emit({"kernels": summarize(rows, launches, gemm_paths)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

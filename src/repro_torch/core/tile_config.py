@@ -1,9 +1,13 @@
 """Tile sizes carried outside the kernels (paper Listing 1.1), H100 defaults.
 
-``TileConfig(bm, bk, bn)`` are the GEMM kernel's block sizes and
-``FlashAttentionConfig(bq, bk)`` the flash kernel's.  The kernels take them
-as launch arguments and never choose them; this module's one small table
-of H100 defaults does.  The registry, tuning DB and tuner come later.
+``TileConfig`` holds every schedule choice of the GEMM kernels: the block
+sizes ``(bm, bk, bn)``, which of the kernels in ``kernels/csrc/gemm.cu``
+runs (``kernel``), the depth of its shared-memory ring (``stages``), the
+split count over K (``split_k``) and the wgmma kernel's raster grouping
+(``group_m``).  ``FlashAttentionConfig(bq, bk)`` is the
+flash kernel's.  The kernels take them as launch arguments and never choose
+them; this module's small table of H100 defaults does.  The registry,
+tuning DB and tuner come later.
 
 Every tile here has a template instantiation in ``kernels/csrc``; a tile
 without one makes the wrapper raise.
@@ -11,20 +15,47 @@ without one makes the wrapper raise.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-
 @dataclasses.dataclass(frozen=True, order=True)
 class TileConfig:
-    """Block sizes of the GEMM kernel.  Hashable."""
+    """Schedule of one GEMM launch.  Hashable.
+
+    ``kernel``: ``wmma`` (bf16 tensor cores through WMMA), ``fma`` (f32),
+    ``decode`` (bf16 small M: mma.sync with the operands swapped, split-K)
+    or ``wgmma`` (bf16 large M: TMA + wgmma, warp-specialised).
+    ``stages``: shared-memory ring depth of ``decode`` and ``wgmma``.
+    ``split_k``: the number of K chunks ``decode`` cuts K into.
+    ``group_m``: ``wgmma`` walks output tiles in columns of this many rows
+    of tiles, so that a wave's A and B panels stay in L2.
+    """
     bm: int = 64
     bk: int = 32
     bn: int = 64
+    kernel: str = "wmma"
+    stages: int = 1
+    split_k: int = 1
+    group_m: int = 1
 
     @property
     def label(self) -> str:
         return f"{self.bm}x{self.bk}x{self.bn}"
+
+    def k_chunk(self, k: int) -> int:
+        """``decode``: the K elements each split sums, a multiple of ``bk``;
+        a launch over K has ``ceil(k / k_chunk(k))`` splits."""
+        k_steps = max(1, -(-k // self.bk))
+        return -(-k_steps // self.split_k) * self.bk
+
+    @property
+    def schedule(self) -> str:
+        """``label`` with the kernel, ring depth and split count."""
+        extra = f"/s{self.stages}" if self.stages > 1 else ""
+        extra += f"/k{self.split_k}" if self.split_k > 1 else ""
+        extra += f"/g{self.group_m}" if self.group_m > 1 else ""
+        return f"{self.kernel}:{self.label}{extra}"
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -38,30 +69,78 @@ class FlashAttentionConfig:
         return f"{self.bq}x{self.bk}"
 
 
-#: H100 defaults, by input dtype: (largest M, tile) in increasing M.  bf16
-#: runs on the tensor cores (4 warps of WMMA), f32 on 16 x 16 FMA threads.
-#: Decode (M = max_batch) takes the 16-row tile; prefill the large ones.
+#: H100 defaults, by input dtype: (largest M, largest N, tile), first match.
+#: bf16 with M <= 16 (decode) streams the weights through the ``decode``
+#: kernel, whose split count comes from ``decode_split_k`` (K and N only);
+#: a 3-deep ring (3 blocks an SM) streams the 128256-column unembed best.
+#: Larger M (prefill) runs ``wgmma`` on 128 x 256 tiles walked in columns of
+#: 16 tile rows, and on 128 x 64 tiles at small N so that the grid still
+#: covers the 132 SMs.  f32 runs on FMA threads.  Set from
+#: ``scripts/torch_gemm_sweep.py`` on an H100 SXM at 700 W.
 H100_GEMM_TILES = {
-    torch.bfloat16: ((16, TileConfig(16, 64, 64)),
-                     (256, TileConfig(64, 32, 64)),
-                     (None, TileConfig(128, 32, 128))),
-    torch.float32: ((16, TileConfig(16, 16, 128)),
-                    (None, TileConfig(64, 16, 64))),
+    torch.bfloat16: (
+        (16, 32768, TileConfig(16, 128, 64, kernel="decode", stages=4)),
+        (16, None, TileConfig(16, 128, 64, kernel="decode", stages=3)),
+        (None, 512, TileConfig(128, 64, 64, kernel="wgmma", stages=6)),
+        (None, None, TileConfig(128, 64, 256, kernel="wgmma", stages=4,
+                                group_m=16)),
+    ),
+    torch.float32: (
+        (16, None, TileConfig(16, 16, 128, kernel="fma")),
+        (None, None, TileConfig(64, 16, 64, kernel="fma")),
+    ),
 }
+#: bf16 operands that neither ``decode`` nor ``wgmma`` can take (a base
+#: address or row stride that is not a multiple of 16 bytes): WMMA, by M.
+H100_UNALIGNED_TILES = (
+    (16, TileConfig(16, 64, 64)),
+    (256, TileConfig(64, 32, 64)),
+    (None, TileConfig(128, 32, 128)),
+)
+#: blocks a ``decode`` launch aims at: about two per SM of the H100's 132
+DECODE_TARGET_BLOCKS = 256
+
 H100_FLASH_TILES = ((32, FlashAttentionConfig(32, 64)),
                     (None, FlashAttentionConfig(64, 64)))
 
 
-def gemm_tiles(dtype: torch.dtype, m: int, k: int, n: int) -> TileConfig:
-    """The H100 table's GEMM tile for an (m, k, n) product of ``dtype``."""
+def decode_split_k(k: int, n: int, tile: TileConfig) -> int:
+    """Split count of a ``decode`` launch: the power of two that brings
+    ``ceil(n / bn) * split`` nearest above ``DECODE_TARGET_BLOCKS``, at most
+    one ``bk`` step per split.  Depends on (k, n) only, never on M, so a
+    row computes the same bits in a batch of 8 as alone."""
+    col_tiles = -(-n // tile.bn)
+    k_steps = max(1, -(-k // tile.bk))
+    split = 1
+    while col_tiles * split < DECODE_TARGET_BLOCKS and split < k_steps:
+        split *= 2
+    return min(split, k_steps)
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_tiles(dtype: torch.dtype, m: int, k: int, n: int,
+               aligned: bool = True) -> TileConfig:
+    """The H100 table's GEMM schedule for an (m, k, n) product of ``dtype``.
+
+    ``aligned=False`` is for bf16 operands the TMA and ``cp.async`` paths
+    cannot take; the wrapper decides it from the strides before a launch.
+    Cached: a decode step asks for the same few shapes 113 times.
+    """
     try:
         table = H100_GEMM_TILES[dtype]
     except KeyError:
         raise TypeError(f"no GEMM tiles for {dtype}") from None
-    for max_m, tile in table:
-        if max_m is None or m <= max_m:
+    if dtype == torch.bfloat16 and not aligned:
+        for max_m, tile in H100_UNALIGNED_TILES:
+            if max_m is None or m <= max_m:
+                return tile
+    for max_m, max_n, tile in table:
+        if (max_m is None or m <= max_m) and (max_n is None or n <= max_n):
+            if tile.kernel == "decode":
+                tile = dataclasses.replace(
+                    tile, split_k=decode_split_k(k, n, tile))
             return tile
-    raise AssertionError("unreachable: the last row takes every M")
+    raise AssertionError("unreachable: the last row takes every M and N")
 
 
 def flash_tiles(sq: int, skv: int, d: int) -> FlashAttentionConfig:

@@ -5,7 +5,7 @@ machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Without a card every test here skips (decided at run time, in a fixture).
-Tolerances: float32 GEMM atol=rtol=1e-4 (summation order over K up to 2048),
+Tolerances: float32 GEMM atol=rtol=1e-4 (summation order over K up to 8192),
 float32 flash 1e-5; bfloat16 outputs 2e-2 (one bf16 ulp).
 """
 import pytest
@@ -14,9 +14,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.tile_config import flash_tiles, gemm_tiles  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.gemm import instantiated_schedules  # noqa: E402
 
 ACTIVATIONS = [None, "relu", "gelu", "silu", "tanh"]
 BF16 = dict(atol=2e-2, rtol=2e-2)
+F32 = dict(atol=1e-4, rtol=1e-4)
 
 pytestmark = pytest.mark.cuda
 
@@ -28,11 +30,18 @@ def cuda():
     return torch.device("cuda")
 
 
+def _operands(dev, seed, m, k, n, dtype=torch.bfloat16, kmajor=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    b = (torch.randn(n, k, generator=gen, device=dev) * k ** -0.5).to(dtype)
+    return a, (b.t() if kmajor else b.t().contiguous())
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n,transposed", [
     (8, 2048, 512, False), (37, 100, 77, True), (300, 256, 192, False)])
 def test_cuda_gemm_matches_plain_version(cuda, dtype, m, k, n, transposed):
+    from repro_torch import kernels
     from repro_torch.kernels.gemm import gemm_cuda
     gen = torch.Generator(device=cuda).manual_seed(0)
     a = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
@@ -42,13 +51,111 @@ def test_cuda_gemm_matches_plain_version(cuda, dtype, m, k, n, transposed):
     bias = torch.randn(n, generator=gen, device=cuda)
     for act in ACTIVATIONS:
         kw = dict(alpha=0.5, beta=2.0, bias=bias, activation=act)
-        before = gemm_cuda.launches
+        before = kernels.launch_counts()["gemm"]
         got = gemm_cuda(a, b, c, config=gemm_tiles(dtype, m, k, n), **kw)
-        assert gemm_cuda.launches == before + 1
+        assert kernels.launch_counts()["gemm"] == before + 1
         want = ref.gemm_ref(a, b, c, **kw)
         torch.cuda.synchronize()
-        tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else BF16
+        tol = F32 if dtype == torch.float32 else BF16
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# (M, K, N, K-major B, activation, f32 out, +C +bias, expected kernel)
+NEW_PATHS = [
+    (1, 2048, 512, False, None, False, False, "decode"),
+    (3, 2048, 512, False, "silu", False, False, "decode"),
+    (8, 2048, 512, False, None, True, True, "decode"),
+    (16, 2048, 512, False, "gelu", False, True, "decode"),
+    (1, 8192, 2048, False, "silu", True, False, "decode"),
+    (8, 8192, 2048, False, None, False, True, "decode"),
+    (16, 8192, 2048, False, "tanh", True, False, "decode"),
+    (8, 2048, 8192, False, "silu", False, False, "decode"),
+    (8, 2048, 4160, True, None, True, False, "decode"),      # unembed layout
+    (5, 200, 72, True, "relu", False, True, "decode"),       # ragged K tile
+    (1800, 2048, 512, False, None, False, False, "wgmma"),   # M % 128 != 0
+    (2048, 2048, 2048, False, "silu", False, False, "wgmma"),
+    (256, 1024, 4096, False, None, True, True, "wgmma"),
+    (200, 2048, 1000, True, None, True, False, "wgmma"),     # K-major B
+    (130, 200, 520, False, "gelu", False, True, "wgmma"),    # ragged K and N
+    (24, 8192, 2048, False, "relu", False, False, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("case", NEW_PATHS, ids=[
+    f"{c[7]}-{c[0]}x{c[1]}x{c[2]}{'-kmajor' if c[3] else ''}-{c[4]}"
+    f"{'-f32out' if c[5] else ''}{'-C-bias' if c[6] else ''}" for c in NEW_PATHS])
+def test_cuda_gemm_decode_and_wgmma_match_plain_version(cuda, case):
+    from repro_torch.kernels.gemm import gemm_cuda
+    m, k, n, kmajor, act, f32_out, extras, path = case
+    a, b = _operands(cuda, m + k + n, m, k, n, kmajor=kmajor)
+    kw = dict(activation=act,
+              out_dtype=torch.float32 if f32_out else torch.bfloat16)
+    c = None
+    if extras:
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        c = torch.randn(m, n, generator=gen, device=cuda)
+        kw.update(alpha=0.5, beta=0.25,
+                  bias=torch.randn(n, generator=gen, device=cuda))
+    tile = gemm_tiles(torch.bfloat16, m, k, n)
+    assert tile.kernel == path
+    before = gemm_cuda.launches_by_path[path]
+    got = gemm_cuda(a, b, c, config=tile, **kw)
+    assert gemm_cuda.launches_by_path[path] == before + 1
+    want = ref.gemm_ref(a, b, c, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32 if f32_out else BF16))
+
+
+# every decode and wgmma schedule gemm.cu instantiates, at a ragged shape
+SCHEDULES = [(kernel, bk, bn, stages) for kernel in ("decode", "wgmma")
+             for _, bk, bn, stages in sorted(instantiated_schedules()[kernel],
+                                             reverse=True)]
+
+
+@pytest.mark.parametrize("sched", SCHEDULES, ids=[
+    f"{k}-{bk}x{bn}-s{st}" for k, bk, bn, st in SCHEDULES])
+@pytest.mark.parametrize("kmajor", [False, True], ids=["rowmajor", "kmajor"])
+def test_cuda_gemm_every_schedule_matches_plain_version(cuda, sched, kmajor):
+    from repro_torch.core.tile_config import TileConfig
+    from repro_torch.kernels.gemm import gemm_cuda
+    kernel, bk, bn, stages = sched
+    m = 13 if kernel == "decode" else 700     # 700: a ragged last M tile
+    k, n = 1000, 1096
+    a, b = _operands(cuda, bn + stages, m, k, n, kmajor=kmajor)
+    cfg = TileConfig(16 if kernel == "decode" else 128, bk, bn, kernel=kernel,
+                     stages=stages, split_k=3 if kernel == "decode" else 1,
+                     group_m=3 if kernel == "wgmma" else 1)
+    before = gemm_cuda.launches_by_path[kernel]
+    got = gemm_cuda(a, b, config=cfg, activation="gelu")
+    assert gemm_cuda.launches_by_path[kernel] == before + 1
+    want = ref.gemm_ref(a, b, activation="gelu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.parametrize("k,n,kmajor", [
+    (2048, 512, False), (8192, 2048, False), (2048, 8192, False),
+    (2048, 4160, True)])
+def test_cuda_decode_is_deterministic_and_batch_invariant(cuda, k, n, kmajor):
+    """The same product twice gives the same bits; each row of an M = 8
+    product equals that row computed alone (M = 1) and in M = 3 and 16,
+    bit for bit; a launch right after another one through the split-K
+    workspace does not see the first one's partial sums."""
+    from repro_torch.kernels.gemm import gemm_cuda
+    a, b = _operands(cuda, k + n, 16, k, n, kmajor=kmajor)
+    other, _ = _operands(cuda, 99, 8, k, n)
+    run = lambda x: gemm_cuda(x, b, config=gemm_tiles(torch.bfloat16, x.shape[0],
+                                                      k, n), activation="silu")
+    first = run(a[:8])
+    again = run(a[:8])
+    assert torch.equal(first, again)
+    for i in range(8):
+        assert torch.equal(run(a[i:i + 1])[0], first[i]), i
+    assert torch.equal(run(a[:3]), first[:3])
+    assert torch.equal(run(a)[:8], first)
+    run(other)                              # a different product in between
+    assert torch.equal(run(a[:8]), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -92,3 +199,26 @@ def test_cuda_engine_runs_through_both_kernels(cuda):
     assert got == generate_per_prompt(model, params, prompts, 6, max_len=128)
     st = eng.stats()
     assert st["device_transfers"] == st["chunks"]
+
+
+def test_cuda_engine_bf16_goes_through_decode_and_wgmma(cuda):
+    """Reduced llama in bf16: every GEMM of the serve path runs through the
+    decode or the wgmma kernel, none through WMMA or FMA."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              attention_impl="flash", dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(1, device=cuda)
+    prompts = [[(i * 7 + 3) % 256 for i in range(n)] for n in (37, 5, 64)]
+    eng = Engine(model, params, ServeConfig(max_batch=2, max_len=128))
+    kernels.reset_launch_counts()
+    eng.generate(prompts, 4)
+    paths = kernels.gemm_launches_by_path()
+    assert paths["decode"] > 0 and paths["wgmma"] > 0, paths
+    assert paths["wmma"] == 0 and paths["fma"] == 0, paths

@@ -6,6 +6,8 @@ atol=rtol=2e-2 (one bf16 ulp: the two sides round the same f32 value after
 summing in different orders).  The CUDA kernels themselves are held against
 these plain versions on the card by ``tests/test_torch_cuda.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -18,7 +20,8 @@ from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro_torch.core.tile_config import (  # noqa: E402
-    H100_FLASH_TILES, H100_GEMM_TILES, TileConfig, flash_tiles, gemm_tiles)
+    H100_FLASH_TILES, H100_GEMM_TILES, H100_UNALIGNED_TILES, TileConfig,
+    flash_tiles, gemm_tiles)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.models.params import params_from_numpy  # noqa: E402
@@ -102,12 +105,100 @@ def test_gemm_rejects_unknown_activation_and_bad_shapes():
 
 
 def test_tile_table_covers_every_m_and_names_instantiated_tiles():
+    from repro_torch.kernels.gemm import instantiated_schedules
+    inst = instantiated_schedules()
+    assert set(inst) == {"wmma", "fma", "decode", "wgmma"}
+    assert all(inst.values())
+    table = [t for rows in H100_GEMM_TILES.values() for *_, t in rows]
+    table += [t for _, t in H100_UNALIGNED_TILES]
+    for tile in table:
+        assert (tile.bm, tile.bk, tile.bn, tile.stages) in inst[tile.kernel], \
+            tile.schedule
     for dtype, rows in H100_GEMM_TILES.items():
         for m in (1, 8, 16, 17, 256, 257, 4096):
-            assert gemm_tiles(dtype, m, 2048, 2048) in [t for _, t in rows]
-    assert gemm_tiles(torch.bfloat16, 8, 1, 1) == TileConfig(16, 64, 64)
+            for k, n in ((2048, 2048), (2048, 512), (8192, 2048), (2048, 128256)):
+                tile = gemm_tiles(dtype, m, k, n)
+                assert dataclasses.replace(tile, split_k=1) in [
+                    t for *_, t in rows], tile.schedule
+    assert gemm_tiles(torch.bfloat16, 8, 2048, 2048).kernel == "decode"
+    assert gemm_tiles(torch.bfloat16, 17, 2048, 2048).kernel == "wgmma"
+    assert gemm_tiles(torch.float32, 8, 2048, 2048).kernel == "fma"
+    assert gemm_tiles(torch.bfloat16, 8, 1, 1, aligned=False) == TileConfig(16, 64, 64)
     for s in (1, 32, 33, 4096):
         assert flash_tiles(s, s, 64) in [t for _, t in H100_FLASH_TILES]
+
+
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 512), (2048, 8192),
+                                 (8192, 2048), (2048, 128256), (200, 72),
+                                 (64, 24)])
+def test_tile_table_decode_rows_depend_on_k_and_n_only(k, n):
+    """Every M the decode kernel takes gets the same schedule, so a row
+    sums its K chunks in the same order alone (M = 1) as in the engine's
+    batch (M = 8): the same bits."""
+    tiles = {gemm_tiles(torch.bfloat16, m, k, n) for m in range(1, 17)}
+    assert len(tiles) == 1
+    (tile,) = tiles
+    assert tile.kernel == "decode"
+    chunk = tile.k_chunk(k)
+    assert chunk % tile.bk == 0 and chunk > 0
+    splits = -(-k // chunk)
+    assert 1 <= splits <= tile.split_k
+    assert (splits - 1) * chunk < k          # no empty split
+
+
+def test_decode_split_count_fills_the_card():
+    # ~2 blocks an SM; never more splits than bk steps
+    assert gemm_tiles(torch.bfloat16, 8, 2048, 2048).split_k == 8
+    assert gemm_tiles(torch.bfloat16, 8, 2048, 512).split_k == 16
+    assert gemm_tiles(torch.bfloat16, 8, 2048, 8192).split_k == 2
+    assert gemm_tiles(torch.bfloat16, 8, 8192, 2048).split_k == 8
+    assert gemm_tiles(torch.bfloat16, 8, 2048, 128256).split_k == 1
+    assert gemm_tiles(torch.bfloat16, 8, 64, 64).split_k == 1
+
+
+def test_gemm_wrapper_sends_unaligned_operands_to_wmma():
+    """The decode / wgmma kernels need 16-byte aligned bases and row strides
+    (cp.async and TMA); the wrapper decides from the strides, before any
+    launch, and the CPU tensors here show the same strides."""
+    from repro_torch.kernels.gemm import _aligned
+
+    def fits(kernel, a, b, k, n):
+        kmajor = int(b.stride(1) != 1 and b.stride(0) == 1)
+        return _aligned(kernel, a.data_ptr(), a.stride(0), b.data_ptr(),
+                        b.stride(0), b.stride(1), kmajor, k, n)
+
+    a = torch.zeros(8, 2048, dtype=torch.bfloat16)
+    w = torch.zeros(2048, 512, dtype=torch.bfloat16)
+    emb = torch.zeros(1000, 2048, dtype=torch.bfloat16)
+    assert fits("decode", a, w, 2048, 512)
+    assert fits("wgmma", a, w, 2048, 512)
+    assert fits("decode", a, emb.t(), 2048, 1000)              # tied unembed
+    ragged = torch.zeros(37, 100, dtype=torch.bfloat16)
+    assert not fits("wgmma", ragged, torch.zeros(100, 77, dtype=torch.bfloat16),
+                    100, 77)
+    assert not fits("decode", a[:, 1:2041], w[1:2041], 2040, 512)
+    assert not fits("decode", a, w[:, :100], 2048, 100)         # N % 8
+    assert fits("wgmma", a, w[:, :104], 2048, 104)
+
+
+def test_launch_counts_by_path_reset_together():
+    from repro_torch import kernels
+    from repro_torch.kernels.gemm import gemm_cuda
+    gemm_cuda.launches_by_path["decode"] += 3
+    assert kernels.gemm_launches_by_path()["decode"] >= 3
+    assert kernels.launch_counts()["gemm"] >= 3
+    kernels.reset_launch_counts()
+    assert set(kernels.gemm_launches_by_path().values()) == {0}
+    assert kernels.launch_counts() == {"gemm": 0, "flash_attention": 0}
+
+
+def test_gemm_cuda_takes_cuda_tensors_only():
+    """No plain-version fallback inside the kernel wrapper: CPU tensors go
+    through ``ops.gemm`` instead."""
+    from repro_torch.kernels.gemm import gemm_cuda
+    a = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gemm_cuda(a, torch.zeros(8, 8), config=gemm_tiles(torch.float32, 4, 8, 8))
 
 
 # ---------------------------------------------------------------------------
