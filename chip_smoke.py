@@ -18,14 +18,19 @@ Phases, each printing one JSON line:
    (a yardstick only; the port never calls it) and the bound (max of bytes
    / 3.35 TB/s and FLOPs / the peak for the input type); the kernel and
    the library call are timed again by a device-only timer (``Timer``).
-   Each row names the GEMM path it took and its share of bound.
+   Flash attention runs at the serving prefill shape, its ragged, short
+   and f32 edges, and two long prompts (4096 tokens causal, 4 x 1024
+   ragged) that are not on the serve path; each flash launch runs twice
+   and must give the same bits.  Each row names the path (kernel) it took
+   and its share of bound.
 4. ``serve``   — full-width llama3.2-1b in bf16 with seeded random weights,
    flash prefill: 12 requests through ``Engine`` over 8 slots; the kernels'
-   launch counts (the GEMM's by path: every product must go through the
-   decode or the wgmma kernel) are set to 0 just before and read just
-   after.  Then the batched ragged prefill against per-prompt prefill, and a
-   float32 pass (full width, 2 layers) whose engine tokens must equal the
-   per-prompt oracle's exactly.
+   launch counts by path are set to 0 just before and read just after:
+   every product must go through the decode or the wgmma GEMM kernel, and
+   every prefill attention through the wgmma flash kernel.  Then the
+   batched ragged prefill against per-prompt prefill, and a float32 pass
+   (full width, 2 layers, flash through the fma kernel) whose engine
+   tokens must equal the per-prompt oracle's exactly.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -263,65 +268,103 @@ def decode_batch_invariance(torch, gen):
 
 
 def flash_cases():
-    """(label, B, S, Skv, H, KV, d, dtype, kv_start)."""
+    """(label, B, S, Skv, H, KV, d, dtype, kv_start, main_path).  The main
+    path's prefill shape first; the two long prompts are not on the serve
+    path (its prompts are at most 300 tokens), so the kernels line's sums
+    stay comparable with earlier runs."""
     ragged = [0, 17, 100, 255, 256, 3, 64, 200]     # 256: fully masked row
     return [
         ("prefill (8,256,32,64) ragged + fully masked row", 8, 256, 256, 32, 8,
-         64, "bfloat16", ragged),
+         64, "bfloat16", ragged, True),
         ("non-divisible S=200 + fully masked row", 8, 200, 200, 32, 8, 64,
-         "bfloat16", [0, 5, 199, 200, 1, 63, 64, 150]),
-        ("causal S=100 < Skv=256", 2, 100, 256, 32, 8, 64, "bfloat16", [0, 40]),
+         "bfloat16", [0, 5, 199, 200, 1, 63, 64, 150], False),
+        ("causal S=100 < Skv=256", 2, 100, 256, 32, 8, 64, "bfloat16", [0, 40],
+         False),
         ("f32 (4,300,32,64) ragged", 4, 300, 300, 32, 8, 64, "float32",
-         [0, 7, 150, 300]),
+         [0, 7, 150, 300], False),
+        ("long causal (1,4096,32,64)", 1, 4096, 4096, 32, 8, 64, "bfloat16",
+         [0], False),
+        ("long ragged (4,1024,32,64)", 4, 1024, 1024, 32, 8, 64, "bfloat16",
+         [0, 100, 511, 1000], False),
     ]
 
 
-def run_flash_case(torch, timers, case, gen):
-    import torch.nn.functional as F
-    from repro_torch.core.tile_config import flash_tiles
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.ref import flash_attention_ref
-    label, b, s, skv, h, kvh, d, dtype, ks = case
+def flash_operands(torch, case, gen):
+    """q, k, v and kv_start of a ``flash_cases`` row, on the card."""
+    _, b, s, skv, h, kvh, d, dtype, ks, _ = case
     dt = getattr(torch, dtype)
     q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
     k = torch.randn(b, skv, kvh, d, generator=gen, device="cuda").to(dt)
     v = torch.randn(b, skv, kvh, d, generator=gen, device="cuda").to(dt)
-    kv_start = torch.tensor(ks, dtype=torch.int32, device="cuda")
-    tile = flash_tiles(s, skv, d)
-    run = lambda: flash_attention_cuda(q, k, v, bq=tile.bq, bk=tile.bk,
-                                       causal=True, kv_start=kv_start)
-    out = run()
-    ref = flash_attention_ref(q, k, v, causal=True, kv_start=kv_start)
-    torch.cuda.synchronize()
-    finite = bool(torch.isfinite(out.float()).all())
-    err = (out.float() - ref.float()).abs().max().item()
-    # bf16 output: one bf16 ulp; f32: exp and summation order only.
-    tol = 2e-2 if dtype == "bfloat16" else 1e-5
-    ok = finite and torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-    # work this data needs: unmasked (query, key) pairs, 4*d FLOP each
+    return q, k, v, torch.tensor(ks, dtype=torch.int32, device="cuda")
+
+
+def flash_bound(torch, case):
+    """(bound ms, bound_by) for the work this case's data needs: 4 d FLOP
+    per unmasked (query, key) pair and head; q, k, v, o and kv_start moved
+    once."""
+    _, b, s, skv, h, kvh, d, dtype, ks, _ = case
     pairs = 0
     for start in ks:
         for r in range(s):
             hi = min(skv, r + (skv - s) + 1)
             pairs += max(0, hi - start)
-    flops = 4.0 * d * pairs * h
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * 4
-    b_ms, b_by = bound(flops, nbytes, dtype)
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * s * h * d + 2 * b * skv * kvh * d) * size + b * 4
+    return bound(4.0 * d * pairs * h, nbytes, dtype)
+
+
+def flash_library(torch, q, k, v, kv_start):
+    """One ``F.scaled_dot_product_attention`` call computing the same
+    function (GQA heads expanded beforehand): the yardstick."""
+    import torch.nn.functional as F
+    b, s, h, _ = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+    if s == skv and not kv_start.any():   # plain causal: SDPA's causal kernels
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     cols = torch.arange(skv, device="cuda")
     rows = torch.arange(s, device="cuda")
     mask = ((cols[None, :] <= rows[:, None] + (skv - s))[None]
             & (cols[None, None, :] >= kv_start[:, None, None]))[:, None]
-    qt = q.transpose(1, 2)
-    kt = k.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
-    vt = v.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
-    lib = (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def run_flash_case(torch, timers, case, gen):
+    from repro_torch.core.tile_config import flash_tiles
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+    label, b, s, skv, h, kvh, d, dtype, ks, main = case
+    q, k, v, kv_start = flash_operands(torch, case, gen)
+    tile = flash_tiles(q.dtype, s, skv, d)
+    run = lambda: flash_attention_cuda(q, k, v, config=tile, causal=True,
+                                       kv_start=kv_start)
+    before = dict(flash_attention_cuda.launches_by_path)
+    out = run()
+    path = [p for p, n in flash_attention_cuda.launches_by_path.items()
+            if n != before[p]][0]
+    again = run()
+    ref = flash_attention_ref(q, k, v, causal=True, kv_start=kv_start)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out.float()).all())
+    same_bits = bool(torch.equal(out, again))
+    err = (out.float() - ref.float()).abs().max().item()
+    # bf16 output: one bf16 ulp; f32: exp and summation order only.
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    ok = finite and same_bits and torch.allclose(out.float(), ref.float(),
+                                                 atol=tol, rtol=tol)
+    b_ms, b_by = flash_bound(torch, case)
+    lib = flash_library(torch, q, k, v, kv_start)
     timer, device_timer = timers
     kernel_ms, kernel_device_ms = timer(run), device_timer(run)
     return {
         "name": "flash_attention", "replaces": KERNELS[1][3], "case": label,
         "shape": [[b, s, h, d], [b, skv, kvh, d]], "dtype": dtype,
-        "tile": tile.label, "max_abs_err": err, "tol": f"atol=rtol={tol}",
-        "path": "flash", "finite": finite, "ok": bool(ok),
+        "tile": tile.label, "schedule": tile.schedule, "max_abs_err": err,
+        "tol": f"atol=rtol={tol}", "path": path, "finite": finite,
+        "same_bits_twice": same_bits, "ok": bool(ok),
         "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
         "plain_ms": timer(lambda: flash_attention_ref(
             q, k, v, causal=True, kv_start=kv_start)),
@@ -329,7 +372,7 @@ def run_flash_case(torch, timers, case, gen):
         "library": "F.scaled_dot_product_attention",
         "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / kernel_ms,
         "share_of_bound_device": b_ms / kernel_device_ms,
-        "main_path": label.startswith("prefill"),
+        "main_path": main,
     }
 
 
@@ -351,10 +394,10 @@ def phase_kernels(torch, out_dir):
     bad = [r["case"] for r in invariance if not r["bit_equal"]]
     if bad:
         raise AssertionError(f"decode rows differ between M = 8 and 1: {bad}")
-    slow = [r["case"] for r in rows if r["name"] == "gemm" and r["main_path"]
-            and r["path"] not in ("decode", "wgmma")]
+    slow = [r["case"] for r in rows if r["main_path"] and r["path"] not in (
+        ("decode", "wgmma") if r["name"] == "gemm" else ("wgmma",))]
     if slow:
-        raise AssertionError(f"main-path GEMM shapes off the new kernels: {slow}")
+        raise AssertionError(f"main-path shapes off the new kernels: {slow}")
     return rows
 
 
@@ -395,6 +438,7 @@ def phase_serve(torch):
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     gemm_paths = kernels.gemm_launches_by_path()
+    flash_paths = kernels.flash_launches_by_path()
     st = eng.stats()
     assert all(len(o) == max_new for o in outs), [len(o) for o in outs]
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
@@ -402,6 +446,8 @@ def phase_serve(torch):
     # every bf16 product of the serve path went through the new kernels
     assert gemm_paths["decode"] > 0 and gemm_paths["wgmma"] > 0, gemm_paths
     assert gemm_paths["wmma"] == 0 and gemm_paths["fma"] == 0, gemm_paths
+    # and every bf16 prefill attention through the wgmma flash kernel
+    assert flash_paths["wgmma"] > 0 and flash_paths["fma"] == 0, flash_paths
     assert st["device_transfers"] == st["chunks"], st
     assert st["admissions"] >= 12 and st["admission_prefills"] >= 2, st
     serve = {
@@ -417,6 +463,7 @@ def phase_serve(torch):
         "prefill_tok_per_s": float(lens.sum()) / st["prefill_seconds"],
         "decode_tok_per_s": st["tokens_generated"] / st["decode_seconds"],
         "launches": launches, "gemm_launches_by_path": gemm_paths,
+        "flash_launches_by_path": flash_paths,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
 
@@ -463,7 +510,7 @@ def phase_serve(torch):
     serve["f32_pass"] = {"layers": 2, "requests": len(prompts32),
                          "max_new": 8, "tokens_equal_oracle": got == want}
     emit(serve)
-    return launches, gemm_paths
+    return launches, {"gemm": gemm_paths, "flash_attention": flash_paths}
 
 
 # ---------------------------------------------------------------------------
@@ -485,10 +532,9 @@ def _sums(mine):
             if device_ms else None}
 
 
-def summarize(rows, launches, gemm_paths):
+def summarize(rows, launches, paths):
     """One entry per kernel: its main-path cases summed (each shape once),
-    and for the GEMM the same sums per path (decode, wgmma) with the serve
-    phase's launches by path."""
+    and the same sums per path with the serve phase's launches by path."""
     out = []
     for kname, route_src, repl, repl_fn in KERNELS:
         mine = [r for r in rows if r["name"] == kname and r["main_path"]]
@@ -499,10 +545,9 @@ def summarize(rows, launches, gemm_paths):
                                     if r["name"] == kname)}
         sums = _sums(mine)
         entry.update(sums, kernel_ms=sums["ms"])
-        if kname == "gemm":
-            entry["launches_by_path"] = gemm_paths
-            entry["paths"] = {p: _sums([r for r in mine if r["path"] == p])
-                              for p in sorted({r["path"] for r in mine})}
+        entry["launches_by_path"] = paths[kname]
+        entry["paths"] = {p: _sums([r for r in mine if r["path"] == p])
+                          for p in sorted({r["path"] for r in mine})}
         out.append(entry)
     return out
 
@@ -535,9 +580,9 @@ def main(argv=None) -> int:
             with open(os.path.join(args.out, f"ptxas_{name}.log"), "w") as f:
                 f.write(log)
     rows = phase_kernels(torch, args.out)
-    launches, gemm_paths = phase_serve(torch)
+    launches, paths = phase_serve(torch)
     print(card, flush=True)
-    emit({"kernels": summarize(rows, launches, gemm_paths)})
+    emit({"kernels": summarize(rows, launches, paths)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,10 +1,12 @@
 """The single public flash-attention entry point: models route here.
 
 Mirror of :mod:`repro_torch.core.gemm_api` for the attention kernel: the
-(bq, bk) blocks come from the H100 tile table unless the caller names them.
+schedule comes from the H100 tile table for the operands' dtype; a caller
+may override its (bq, bk) blocks.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -25,9 +27,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_start`` (B,) int32 masks each row's columns before it (left-padded
     ragged batches).  Returns (B, S, H, d) in ``q.dtype``.
     """
-    if bq is None or bk is None:
-        cfg = flash_tiles(q.shape[1], k.shape[1], q.shape[3])
-        bq = bq if bq is not None else cfg.bq
-        bk = bk if bk is not None else cfg.bk
-    return fa_kernel.flash_attention(q, k, v, bq=bq, bk=bk, causal=causal,
+    cfg = flash_tiles(q.dtype, q.shape[1], k.shape[1], q.shape[3])
+    if bq is not None or bk is not None:
+        cfg = dataclasses.replace(cfg, bq=bq or cfg.bq, bk=bk or cfg.bk)
+    return fa_kernel.flash_attention(q, k, v, config=cfg, causal=causal,
                                      kv_start=kv_start)

@@ -4,9 +4,10 @@
 sizes ``(bm, bk, bn)``, which of the kernels in ``kernels/csrc/gemm.cu``
 runs (``kernel``), the depth of its shared-memory ring (``stages``), the
 split count over K (``split_k``) and the wgmma kernel's raster grouping
-(``group_m``).  ``FlashAttentionConfig(bq, bk)`` is the
-flash kernel's.  The kernels take them as launch arguments and never choose
-them; this module's small table of H100 defaults does.  The registry,
+(``group_m``).  ``FlashAttentionConfig`` is the flash kernels': query
+rows and KV columns per block, the kernel and its ring depth.  The kernels
+take them as launch arguments and never choose them; this module's small
+tables of H100 defaults do.  The registry,
 tuning DB and tuner come later.
 
 Every tile here has a template instantiation in ``kernels/csrc``; a tile
@@ -60,13 +61,28 @@ class TileConfig:
 
 @dataclasses.dataclass(frozen=True, order=True)
 class FlashAttentionConfig:
-    """Block sizes of the flash-attention kernel: query rows x KV columns."""
+    """Schedule of one flash-attention launch.  Hashable.
+
+    ``kernel``: ``fma`` (f32 FMA; ``bq`` query positions of one head per
+    block) or ``wgmma`` (bf16 TMA + wgmma; ``bq`` packed query rows per
+    block, the G = H / KV heads of a KV head times ``bq / G`` positions,
+    64 rows per consumer warpgroup).  ``bk``: KV columns per tile.
+    ``stages``: depth of ``wgmma``'s K / V ring.
+    """
     bq: int = 64
     bk: int = 64
+    kernel: str = "fma"
+    stages: int = 1
 
     @property
     def label(self) -> str:
         return f"{self.bq}x{self.bk}"
+
+    @property
+    def schedule(self) -> str:
+        """``label`` with the kernel and ring depth."""
+        extra = f"/s{self.stages}" if self.stages > 1 else ""
+        return f"{self.kernel}:{self.label}{extra}"
 
 
 #: H100 defaults, by input dtype: (largest M, largest N, tile), first match.
@@ -100,8 +116,25 @@ H100_UNALIGNED_TILES = (
 #: blocks a ``decode`` launch aims at: about two per SM of the H100's 132
 DECODE_TARGET_BLOCKS = 256
 
-H100_FLASH_TILES = ((32, FlashAttentionConfig(32, 64)),
-                    (None, FlashAttentionConfig(64, 64)))
+#: H100 flash-attention defaults, by input dtype: (largest head dim,
+#: largest S, tile), first match.  bf16 runs the ``wgmma`` kernel: at d = 64
+#: one consumer warpgroup a block (64 rows), four blocks an SM with 64-column
+#: KV tiles up to 1024 query positions and three with 128-column tiles
+#: beyond; at d = 128 two warpgroups a block (128 rows).  f32, and bf16
+#: operands the wgmma kernel does not take (the wrapper decides before the
+#: launch), run ``fma`` with the float32 rows.  Set from
+#: ``scripts/torch_flash_sweep.py`` on an H100 SXM at 700 W.
+H100_FLASH_TILES = {
+    torch.bfloat16: (
+        (64, 1024, FlashAttentionConfig(64, 64, kernel="wgmma", stages=2)),
+        (64, None, FlashAttentionConfig(64, 128, kernel="wgmma", stages=2)),
+        (None, None, FlashAttentionConfig(128, 128, kernel="wgmma", stages=2)),
+    ),
+    torch.float32: (
+        (None, 32, FlashAttentionConfig(32, 64)),
+        (None, None, FlashAttentionConfig(64, 64)),
+    ),
+}
 
 
 def decode_split_k(k: int, n: int, tile: TileConfig) -> int:
@@ -143,9 +176,15 @@ def gemm_tiles(dtype: torch.dtype, m: int, k: int, n: int,
     raise AssertionError("unreachable: the last row takes every M and N")
 
 
-def flash_tiles(sq: int, skv: int, d: int) -> FlashAttentionConfig:
-    """The H100 table's flash-attention blocks for (sq, skv, d)."""
-    for max_sq, tile in H100_FLASH_TILES:
-        if max_sq is None or sq <= max_sq:
+def flash_tiles(dtype: torch.dtype, sq: int, skv: int,
+                d: int) -> FlashAttentionConfig:
+    """The H100 table's flash-attention schedule for ``dtype`` operands of
+    (sq, skv, d)."""
+    try:
+        table = H100_FLASH_TILES[dtype]
+    except KeyError:
+        raise TypeError(f"no flash-attention tiles for {dtype}") from None
+    for max_d, max_sq, tile in table:
+        if (max_d is None or d <= max_d) and (max_sq is None or sq <= max_sq):
             return tile
-    raise AssertionError("unreachable: the last row takes every S")
+    raise AssertionError("unreachable: the last row takes every d and S")

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc`` into ``build/repro_torch_kernels/lib<name>_<hash>.so`` at the
 repository root (``build/`` is git-ignored), then loaded with ``ctypes``.
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  No PyTorch
+The file name carries a hash of the source, of every ``csrc/*.cuh`` header
+it includes and of the flags, so an edited source or header is rebuilt and
+an unchanged one is loaded as it is.  No PyTorch
 headers are involved, which keeps a build to seconds.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,10 +48,18 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def includes(name: str) -> List[str]:
+    """The ``csrc/`` headers that ``csrc/<name>.cu`` includes by name."""
+    src = (CSRC / f"{name}.cu").read_text()
+    return sorted(set(re.findall(r'^#include "(\w+\.cuh)"', src, re.M)))
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{h}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in includes(name):
+        h.update((CSRC / header).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

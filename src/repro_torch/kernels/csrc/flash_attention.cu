@@ -1,4 +1,4 @@
-// Flash attention forward (online softmax) for Hopper (sm_90a).
+// K2, flash attention forward (online softmax), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_flash_kernel
 // (launched by flash_attention_bhsd, GQA front end flash_attention).  Same
@@ -6,33 +6,61 @@
 // (col <= row + S_kv - S), per-batch-row kv_start mask, masked scores -1e30,
 // any score <= -1e28 contributes exactly 0, f32 running m / l / acc, a row
 // with l == 0 divides by 1 (zeros out, never NaN), output in the input type.
-//
-// Design.  One block of 256 threads per (batch * head, BQ query rows).  A loop
-// inside the block walks the KV columns in BK-column tiles staged in shared
-// memory (this replaces the TPU's sequential "arbitrary" KV grid axis), with
-// the online-softmax state in shared memory and registers.  Block sizes are
+// On the TPU the KV axis is a sequential grid dimension carrying m / l / acc
+// in scratch; here it is a loop inside the block.  Operands stay in the
+// model's (B, S, H, d) layout; K and V take a batch stride, so views
+// k[:, :s] of the (B, max_len, KV, d) cache are read in place.  Blocks are
 // template arguments chosen by the port's tile table and passed at launch.
-//  * Operands stay in the model's (B, S, H, d) layout; the batch stride is an
-//    argument, so a view of a larger cache is read in place.
-//  * GQA: query head h reads KV head h / (H / KV) directly; KV heads are
-//    never repeated in device memory.
-//  * Lengths that are not block multiples are masked in place (rows >= S are
-//    not stored, columns >= S_kv are masked).  For every real row this masks
-//    exactly the columns the reference's left-padding masks.
-//  * The KV loop starts at the tile holding kv_start and stops at the causal
-//    limit of the block's last row: the tiles skipped are fully masked, and a
-//    fully masked tile leaves m, l and acc unchanged.
-//  * All arithmetic is f32 FMA (QK^T and PV), matching the reference's f32
-//    dots; tensor cores, cp.async / TMA and warp specialisation are later work.
+// Two kernels, chosen by the wrapper from the operands before the launch:
 //
-// Bound on the H100 at llama3.2-1b prefill, q (8, 256, 32, 64) and k, v
-// (8, 256, 8, 64) bf16, causal: 4*d FLOP per unmasked (query, key) pair, about
-// 4.3 GFLOP, against 989 TFLOP/s is ~4 us; q + k + v + o is ~21 MB, ~6 us at
-// 3.35 TB/s, so bytes bound it.  This kernel runs on the CUDA cores at f32
-// rates, well above that bound; PERF.md keeps its measured time.
+//  * wgmma (flash_fwd_wgmma_kernel): bf16, d in {64, 128}.  Bound by
+//    operations at prompt lengths (4 d FLOP per unmasked (query, key) pair:
+//    68.7 GFLOP, 0.069 ms at 989 TFLOP/s, for a 4096-token causal prompt
+//    at llama3.2-1b's width) and by bytes at the serving path's 256-token
+//    prefill (q + k + v + o ~21 MB, ~6 us at 3.35 TB/s).
+//    - GQA heads packed into one block: a block takes one (batch row, KV
+//      head) and 64 * NWG query rows, which are 64 * NWG / G positions times
+//      the G = H / KV query heads that share the KV head (llama3.2-1b at
+//      NWG = 1: 16 positions x 4 heads).  The G heads of a position are
+//      contiguous in q, so one 4-D TMA box (64 of d, G heads, positions, 1)
+//      lands Q as a rows x d tile, and O leaves the same way.  Each K / V
+//      tile is read once for G heads, and all rows of a block share one
+//      causal extent.
+//    - Warp-specialised: one producer warp issues TMA loads of BK-column
+//      K and V tiles (128-byte swizzle; d = 64 bf16 is one 128-byte row,
+//      d = 128 two column blocks) into a ring of STAGES buffers, with a
+//      full barrier each for K and V (S = Q K^T starts before V lands) and
+//      an empty barrier; NWG consumer warpgroups own 64 rows each.  With
+//      NWG = 1 three or four blocks share an SM, so one block's softmax
+//      overlaps another's products (softmax and the next product are not
+//      pipelined inside a warpgroup).
+//    - S = Q K^T on wgmma m64nBKk16 from raw bf16 q and k (exact products,
+//      f32 sums); the scale is applied to the f32 scores, folded with
+//      log2(e) into one FMA before exp2.  The online softmax stays in the
+//      accumulator's registers: each row lives in one quad of lanes, so row
+//      max and sum take two shuffles.  P is rounded to bf16 in registers
+//      (at most 2^-9 of each weight) and is the A operand of O += P V
+//      (wgmma m64n{d}k16, A from registers, V MN-major from shared memory);
+//      l sums the f32 P.
+//    - Masks only on the tiles that straddle kv_start, S_kv or the causal
+//      diagonal; the loop starts at the tile holding kv_start and stops at
+//      the block's causal limit (a warpgroup past its own limit skips the
+//      tile); columns past S_kv arrive as zeros from TMA and are masked.
+//    - Epilogue: divide by l (by 1 where l == 0), round to bf16, stage in
+//      the warpgroup's drained rows of the Q tile in the swizzled layout,
+//      one TMA store per 64 columns (rows past S are not written).
+//    - No atomics: two launches give equal bits.
+//  * fma (flash_fwd_kernel): f32 (the exactness pass), and bf16 operands the
+//    wgmma kernel does not take.  One block of 256 threads per (batch *
+//    head, BQ query rows); K / V tiles staged in shared memory as f32; all
+//    arithmetic f32 FMA, matching the reference's f32 dots; GQA by
+//    indexing; rows >= S not stored, columns >= S_kv masked.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // PTX wrappers: mbarrier, TMA, wgmma, tensor-map encoder
 
 namespace {
 
@@ -220,12 +248,279 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ob[row * q_row + tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
   }
 }
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma, the G query heads of a KV head packed into one block
+// ---------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskedBelowLog2 = kMaskedBelow * kLog2e;
+
+template <int NWG, int D, int BK, int STAGES>
+struct WgmmaFlash {
+  static constexpr int kRows = 64 * NWG;          // packed query rows
+  static constexpr int kThreads = 128 * NWG + 32; // consumers, producer warp
+  static constexpr int kSub = D / 64;             // 128-byte column blocks of a row
+  static constexpr int kQSub = kRows * 128;       // bytes of one Q column block
+  static constexpr int kKVSub = BK * 128;         // bytes of one K or V column block
+  static constexpr int kQBytes = kSub * kQSub;
+  static constexpr int kKVBytes = kSub * kKVSub;  // one K (or V) tile
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  // blocks an SM: one with two consumer warpgroups; with one, as many as
+  // registers and shared memory allow at d = 64
+  static constexpr int kMinBlocks = NWG > 1 ? 1 : BK == 64 ? 4 : 3;
+  // 1024 bytes of slack to align the tiles (the swizzle atom), then the Q
+  // tile, the ring, a Q barrier and per stage a K-full, a V-full and an
+  // empty barrier
+  static constexpr int kSmem =
+      1024 + kQBytes + STAGES * kStageBytes + (1 + 3 * STAGES) * 8;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Registers: the producer is one warp, so nearly the whole register file
+// goes to the consumers at the launch bound, without setmaxnreg (which acts
+// on whole warpgroups): NWG = 1 runs three or four blocks an SM at up to
+// 136 or 102 registers a thread, NWG = 2 one block at up to 224.
+template <int NWG, int D, int BK, int STAGES>
+__global__ void __launch_bounds__(128 * NWG + 32,
+                                  WgmmaFlash<NWG, D, BK, STAGES>::kMinBlocks)
+flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tma_q,
+                       __grid_constant__ const CUtensorMap tma_k,
+                       __grid_constant__ const CUtensorMap tma_v,
+                       __grid_constant__ const CUtensorMap tma_o,
+                       const int* __restrict__ kv_start, int S, int Skv,
+                       int KVH, int G, float scale_log2, int causal) {
+  typedef WgmmaFlash<NWG, D, BK, STAGES> L;
+  static_assert((D == 64 || D == 128) && (BK == 64 || BK == 128), "wgmma tiles");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = qs + L::kQBytes;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + STAGES * L::kStageBytes);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
+
+  // Blocks start in blockIdx.x-fastest order: (KV head, batch row) on x and
+  // the query tile on y, last tile first, so the longest causal blocks of
+  // every head start first and the short ones fill the tail.
+  const int P = L::kRows / G;                          // positions per block
+  const int p0 = (gridDim.y - 1 - blockIdx.y) * P;
+  const int kvh = blockIdx.x % KVH, b = blockIdx.x / KVH;
+  const int shift = Skv - S;                           // bottom-right causal
+  const int start = kv_start ? max(kv_start[b], 0) : 0;
+  const int last = min(p0 + P, S) - 1;                 // the block's last row
+  const int hi = causal ? min(Skv, last + shift + 1) : Skv;
+  const int lo = start / BK * BK;
+  const int ntiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 4 * NWG);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NWG) {
+    // producer warp: one thread keeps up to STAGES K / V tiles in flight
+    if (threadIdx.x == 128 * NWG) {
+      mbar_expect_tx(qbar, L::kQBytes);
+      for (int j = 0; j < L::kSub; ++j)
+        tma_load_4d(qs + j * L::kQSub, &tma_q, 64 * j, kvh * G, p0, b, qbar);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES, c0 = lo + t * BK;
+        unsigned char* ks = ring + s * L::kStageBytes;
+        unsigned char* vs = ks + L::kKVBytes;
+        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&kfull[s], L::kKVBytes);
+        for (int j = 0; j < L::kSub; ++j)
+          tma_load_4d(ks + j * L::kKVSub, &tma_k, 64 * j, kvh, c0, b, &kfull[s]);
+        mbar_expect_tx(&vfull[s], L::kKVBytes);
+        for (int j = 0; j < L::kSub; ++j)
+          tma_load_4d(vs + j * L::kKVSub, &tma_v, 64 * j, kvh, c0, b, &vfull[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns packed rows cw * 64 .. + 63; this thread
+  // holds rows r and r + 8 of them, each spread over one quad of lanes
+  const int cw = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int quad = lane % 4;
+  const int r = (t / 32) * 16 + lane / 4;
+  const int pos_lo = p0 + (cw * 64 + r) / G, pos_hi = p0 + (cw * 64 + r + 8) / G;
+  const int wg_first = p0 + cw * 64 / G;
+  const int wg_hi = wg_first >= S ? lo
+      : causal ? min(Skv, min(p0 + (cw * 64 + 63) / G, S - 1) + shift + 1) : Skv;
+  const unsigned char* qa = qs + cw * 64 * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;
+  mbar_wait(qbar, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % STAGES, c0 = lo + it * BK;
+    const uint32_t phase = (it / STAGES) & 1;
+    const unsigned char* ks = ring + s * L::kStageBytes;
+    const unsigned char* vs = ks + L::kKVBytes;
+    if (c0 < wg_hi) {  // warpgroup-uniform: tiles past its causal limit skip
+      // S = Q K^T: raw bf16 operands, f32 sums
+      float sc[BK / 2];
+      mbar_wait(&kfull[s], phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int j = kk / 4, k32 = (kk % 4) * 32;
+        Wgmma<BK>::template mma<0>(
+            sc, sw128_desc(qa + j * L::kQSub + k32, 16, 1024),
+            sw128_desc(ks + j * L::kKVSub + k32, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(sc);
+
+      // element 4i + {0, 1}: row r, column c0 + 8i + 2 quad + {0, 1};
+      // 4i + {2, 3}: row r + 8.  Masked scores are -inf: exp2 gives 0.
+      if (c0 < start || c0 + BK > Skv || (causal && c0 + BK - 1 > wg_first + shift)) {
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = c0 + 8 * i + 2 * quad + e;
+            const bool in = col >= start && col < Skv;
+            if (!in || (causal && col > pos_lo + shift)) sc[4 * i + e] = -INFINITY;
+            if (!in || (causal && col > pos_hi + shift)) sc[4 * i + 2 + e] = -INFINITY;
+          }
+      }
+
+      // online softmax in the log2 domain: x * scale * log2(e)
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo * scale_log2);
+      const float mn_hi = fmaxf(m_hi, mx_hi * scale_log2);
+      const float alpha_lo = ex2(m_lo - mn_lo), alpha_hi = ex2(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      // a row whose maximum is a masked score (<= -1e28) takes no weight
+      const float neg_lo = mn_lo > kMaskedBelowLog2 ? -mn_lo : -INFINITY;
+      const float neg_hi = mn_hi > kMaskedBelowLog2 ? -mn_hi : -INFINITY;
+      uint32_t pa[BK / 16][4];  // P in bf16: the A fragments of O += P V
+      float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        const float p0_lo = ex2(fmaf(sc[4 * i], scale_log2, neg_lo));
+        const float p1_lo = ex2(fmaf(sc[4 * i + 1], scale_log2, neg_lo));
+        const float p0_hi = ex2(fmaf(sc[4 * i + 2], scale_log2, neg_hi));
+        const float p1_hi = ex2(fmaf(sc[4 * i + 3], scale_log2, neg_hi));
+        sum_lo += p0_lo + p1_lo;
+        sum_hi += p0_hi + p1_hi;
+        pa[i / 2][(i % 2) * 2] = pack_bf16(p0_lo, p1_lo);
+        pa[i / 2][(i % 2) * 2 + 1] = pack_bf16(p0_hi, p1_hi);
+      }
+      l_lo = l_lo * alpha_lo + sum_lo;
+      l_hi = l_hi * alpha_hi + sum_hi;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= alpha_lo;
+        o[4 * i + 1] *= alpha_lo;
+        o[4 * i + 2] *= alpha_hi;
+        o[4 * i + 3] *= alpha_hi;
+      }
+
+      // O += P V: V is MN-major (d contiguous), 64-column blocks BK rows
+      // apart, k16 = 16 rows of 128 bytes
+      mbar_wait(&vfull[s], phase);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+        WgmmaRS<D>::template mma<1>(o, pa[j],
+                                    sw128_desc(vs + j * 16 * 128, L::kKVSub, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      fence_regs<BK / 4>(&pa[0][0]);  // P's registers stay live until here
+    } else {
+      // A skipped tile still waits for its load before releasing the stage,
+      // so this warpgroup never runs a ring phase ahead of the other one
+      // (two arrivals in one phase would release a stage still in use).
+      mbar_wait(&kfull[s], phase);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // Epilogue: full row sums (over the quad), divide, round to bf16 and stage
+  // in this warpgroup's drained rows of the Q tile in the 128-byte swizzled
+  // layout (16-byte chunk c of row x sits at chunk c ^ (x % 8)); then one
+  // TMA store per 64 columns.
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float inv_lo = l_lo == 0.0f ? 1.0f : 1.0f / l_lo;
+  const float inv_hi = l_hi == 0.0f ? 1.0f : 1.0f / l_hi;
+  unsigned char* os = qs + cw * 64 * 128;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    unsigned char* at = os + (i / 8) * L::kQSub + (((i % 8) ^ (r % 8)) * 16) + quad * 4;
+    *reinterpret_cast<uint32_t*>(at + r * 128) =
+        pack_bf16(o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo);
+    *reinterpret_cast<uint32_t*>(at + (r + 8) * 128) =
+        pack_bf16(o[4 * i + 2] * inv_hi, o[4 * i + 3] * inv_hi);
+  }
+  fence_async_smem();
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
+  if (t == 0 && wg_first < S) {
+    for (int j = 0; j < L::kSub; ++j)
+      tma_store_4d(&tma_o, os + j * L::kQSub, 64 * j, kvh * G, wg_first, b);
+    bulk_commit();
+    bulk_wait_read();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host-side launchers
+// ---------------------------------------------------------------------------
+// Return codes besides cudaError_t: no instantiation for the schedule, a
+// tensor map cuTensorMapEncodeTiled refused, arguments the kernel does not
+// take.
+enum { ERR_NO_TILE = -1, ERR_TENSOR_MAP = -2, ERR_ARGS = -4 };
+enum { KERNEL_FMA = 0, KERNEL_WGMMA = 1 };
+
+struct Args {
+  const void* q; const void* k; const void* v; const int* kv_start; void* o;
+  long long qb, kb, vb;  // batch strides, elements
+  int B, S, Skv, H, KVH, D;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
 
 template <int BQ, int BK, int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_start, void* o, long long qb, long long kb,
-                   long long vb, int B, int S, int Skv, int H, int KVH,
-                   float scale, int causal, cudaStream_t stream) {
+cudaError_t launch_fma(const Args& a) {
   typedef Smem<BQ, BK, D> L;
   auto kernel = flash_fwd_kernel<BQ, BK, D, T>;
   static bool configured = false;
@@ -235,38 +530,103 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  kernel<<<grid, kThreads, L::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_start, static_cast<T*>(o), qb, kb, vb, S,
-      Skv, H, KVH, scale, causal);
+  dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
+  kernel<<<grid, kThreads, L::kBytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.kv_start, static_cast<T*>(a.o), a.qb, a.kb,
+      a.vb, a.S, a.Skv, a.H, a.KVH, a.scale, a.causal);
   return cudaGetLastError();
 }
 
 template <int BQ, int BK, typename T>
-int dispatch_d(const void* q, const void* k, const void* v, const int* ks,
-               void* o, long long qb, long long kb, long long vb, int B, int S,
-               int Skv, int H, int KVH, int D, float scale, int causal,
-               cudaStream_t st) {
-  switch (D) {
-    case 16: return launch<BQ, BK, 16, T>(q, k, v, ks, o, qb, kb, vb, B, S, Skv, H, KVH, scale, causal, st);
-    case 32: return launch<BQ, BK, 32, T>(q, k, v, ks, o, qb, kb, vb, B, S, Skv, H, KVH, scale, causal, st);
-    case 64: return launch<BQ, BK, 64, T>(q, k, v, ks, o, qb, kb, vb, B, S, Skv, H, KVH, scale, causal, st);
-    case 128: return launch<BQ, BK, 128, T>(q, k, v, ks, o, qb, kb, vb, B, S, Skv, H, KVH, scale, causal, st);
-    default: return -1;
+int fma_d(const Args& a) {
+  switch (a.D) {
+    case 16: return launch_fma<BQ, BK, 16, T>(a);
+    case 32: return launch_fma<BQ, BK, 32, T>(a);
+    case 64: return launch_fma<BQ, BK, 64, T>(a);
+    case 128: return launch_fma<BQ, BK, 128, T>(a);
+    default: return ERR_NO_TILE;
   }
 }
 
+// A 4-D bf16 tensor map over (d, heads, positions, batch) of a tensor whose
+// (positions, heads, d) are contiguous in each batch row: boxes of 64 x
+// box_heads x box_pos x 1, 128-byte swizzle, zeros outside the tensor.
+bool make_map_4d(CUtensorMap* map, const void* base, int D, int heads, int len,
+                 int B, long long bstride, int box_heads, int box_pos) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)len,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                           (cuuint64_t)bstride * 2};
+  cuuint32_t box[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)box_pos, 1};
+  cuuint32_t estride[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NWG, int D, int BK, int STAGES>
+int launch_wgmma(const Args& a) {
+  typedef WgmmaFlash<NWG, D, BK, STAGES> L;
+  auto kernel = flash_fwd_wgmma_kernel<NWG, D, BK, STAGES>;
+  if (a.KVH <= 0 || a.H % a.KVH || 64 % (a.H / a.KVH) || !(a.scale > 0.0f))
+    return ERR_ARGS;
+  const int G = a.H / a.KVH, P = L::kRows / G;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  // an empty KV sequence loads no tile, but its tensor map needs an extent
+  const int kv_len = a.Skv > 0 ? a.Skv : 1;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map_4d(&tq, a.q, D, a.H, a.S, a.B, a.qb, G, P) ||
+      !make_map_4d(&tk, a.k, D, a.KVH, kv_len, a.B, a.kb, 1, BK) ||
+      !make_map_4d(&tv, a.v, D, a.KVH, kv_len, a.B, a.vb, 1, BK) ||
+      !make_map_4d(&to, a.o, D, a.H, a.S, a.B, (long long)a.S * a.H * D, G,
+                   64 / G))
+    return ERR_TENSOR_MAP;
+  const long long heads = (long long)a.KVH * a.B, qtiles = (a.S + P - 1) / P;
+  if (heads > 0x7fffffffLL || qtiles > 65535) return ERR_ARGS;
+  dim3 grid((unsigned)heads, (unsigned)qtiles);
+  kernel<<<grid, L::kThreads, L::kSmem, a.stream>>>(
+      tq, tk, tv, to, a.kv_start, a.S, a.Skv, a.KVH, G, a.scale * kLog2e,
+      a.causal);
+  return cudaGetLastError();
+}
+
+template <int NWG, int BK, int STAGES>
+int wgmma_d(const Args& a) {
+  switch (a.D) {
+    case 64: return launch_wgmma<NWG, 64, BK, STAGES>(a);
+    case 128: return launch_wgmma<NWG, 128, BK, STAGES>(a);
+    default: return ERR_NO_TILE;
+  }
+}
+
+// One dispatch_<kernel> per FlashAttentionConfig.kernel; each line is one
+// instantiated schedule (bq: query rows per block, bk: KV columns per tile,
+// stages: ring depth) for every head dim the kernel takes.  The CPU tests
+// read them from this text.  The wgmma schedules with one consumer
+// warpgroup (bq = 64) spill at d = 128 under their launch bounds; the tile
+// table takes bq = 128 there.
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const int* ks,
-             void* o, long long qb, long long kb, long long vb, int B, int S,
-             int Skv, int H, int KVH, int D, float scale, int causal, int bq,
-             int bk, cudaStream_t st) {
-  if (bq == 64 && bk == 64)
-    return dispatch_d<64, 64, T>(q, k, v, ks, o, qb, kb, vb, B, S, Skv, H, KVH, D, scale, causal, st);
-  if (bq == 32 && bk == 64)
-    return dispatch_d<32, 64, T>(q, k, v, ks, o, qb, kb, vb, B, S, Skv, H, KVH, D, scale, causal, st);
-  return -1;
+int dispatch_fma(const Args& a, int bq, int bk) {
+  if (bq == 64 && bk == 64) return fma_d<64, 64, T>(a);
+  if (bq == 32 && bk == 64) return fma_d<32, 64, T>(a);
+  return ERR_NO_TILE;
+}
+
+int dispatch_wgmma(const Args& a, int bq, int bk, int stages) {
+  if (bq == 64 && bk == 64 && stages == 2) return wgmma_d<1, 64, 2>(a);
+  if (bq == 64 && bk == 128 && stages == 2) return wgmma_d<1, 128, 2>(a);
+  if (bq == 128 && bk == 128 && stages == 2) return wgmma_d<2, 128, 2>(a);
+  return ERR_NO_TILE;
 }
 
 }  // namespace
@@ -274,26 +634,34 @@ int dispatch(const void* q, const void* k, const void* v, const int* ks,
 // q: (B, S, H, D); k, v: (B, Skv, KVH, D), each contiguous in its last three
 // dims, with the given batch strides (elements).  o: contiguous (B, S, H, D).
 // kv_start: (B,) int32 or null.  is_f32: float32 operands (else bfloat16).
-// Returns cudaGetLastError() after the launch, or -1 for a (bq, bk, D) with no
-// instantiation.
+// kernel: 0 fma (bf16 or f32), 1 wgmma (bf16; D 64 or 128; H / KVH dividing
+// 64; 16-byte aligned bases and batch strides; scale > 0).  Returns
+// cudaGetLastError() after the launch, or a negative code: -1 no
+// instantiation of (kernel, bq, bk, stages, D), -2 tensor map refused, -4
+// arguments the kernel does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* kv_start,
                                       void* o, long long q_bstride,
                                       long long k_bstride, long long v_bstride,
                                       int B, int S, int Skv, int H, int KVH,
                                       int D, float scale, int causal,
-                                      int is_f32, int bq, int bk,
-                                      void* stream) {
+                                      int is_f32, int kernel, int bq, int bk,
+                                      int stages, void* stream) {
   if (B == 0 || S == 0) return 0;
-  const int* ks = static_cast<const int*>(kv_start);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f32)
-    return dispatch<float>(q, k, v, ks, o, q_bstride, k_bstride, v_bstride, B,
-                           S, Skv, H, KVH, D, scale, causal, bq, bk, st);
-  return dispatch<bf16>(q, k, v, ks, o, q_bstride, k_bstride, v_bstride, B, S,
-                        Skv, H, KVH, D, scale, causal, bq, bk, st);
+  const Args a{q, k, v, static_cast<const int*>(kv_start), o, q_bstride,
+               k_bstride, v_bstride, B, S, Skv, H, KVH, D, scale, causal,
+               static_cast<cudaStream_t>(stream)};
+  if (kernel == KERNEL_WGMMA)
+    return is_f32 ? ERR_NO_TILE : dispatch_wgmma(a, bq, bk, stages);
+  if (kernel != KERNEL_FMA) return ERR_NO_TILE;
+  return is_f32 ? dispatch_fma<float>(a, bq, bk) : dispatch_fma<bf16>(a, bq, bk);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case ERR_NO_TILE: return "no kernel instantiation for this schedule";
+    case ERR_TENSOR_MAP: return "cuTensorMapEncodeTiled refused the operands";
+    case ERR_ARGS: return "arguments the kernel does not take";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }

@@ -14,6 +14,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.tile_config import flash_tiles, gemm_tiles  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    instantiated_schedules as flash_schedules)
 from repro_torch.kernels.gemm import instantiated_schedules  # noqa: E402
 
 ACTIVATIONS = [None, "relu", "gelu", "silu", "tanh"]
@@ -167,13 +169,104 @@ def test_cuda_flash_matches_plain_version(cuda, dtype):
     k = torch.randn(b, s, kvh, d, generator=gen, device=cuda).to(dtype)
     v = torch.randn(b, s, kvh, d, generator=gen, device=cuda).to(dtype)
     ks = torch.tensor([0, 13, 199, 200], dtype=torch.int32, device=cuda)
-    tile = flash_tiles(s, s, d)
-    got = flash_attention_cuda(q, k, v, bq=tile.bq, bk=tile.bk, kv_start=ks)
+    got = flash_attention_cuda(q, k, v, config=flash_tiles(dtype, s, s, d),
+                               kv_start=ks)
     want = ref.flash_attention_ref(q, k, v, kv_start=ks)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else BF16
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# (B, S, Skv, H, KV, d, kv_start, cache rows K / V are a view of, or None)
+WGMMA_FLASH = [
+    (8, 256, 256, 32, 8, 64, [0, 17, 100, 255, 256, 3, 64, 200], None),
+    (2, 256, 256, 32, 8, 128, [0, 65], None),
+    (2, 200, 200, 16, 16, 64, [0, 199], None),               # H / KV = 1
+    (2, 37, 37, 64, 8, 128, [5, 37], None),                  # H / KV = 8
+    (2, 100, 256, 32, 8, 64, [0, 40], None),                 # S < S_kv
+    (3, 37, 37, 32, 8, 64, [0, 1, 36], None),
+    (4, 200, 200, 32, 8, 64, [0, 129, 63, 200], 1024),       # cache views
+    (2, 300, 300, 8, 1, 128, [17, 0], 1024),
+] + [(4, n, n, 32, 8, 64, [0, n // 3, n - 1, n], 1024)       # engine buckets
+     for n in (8, 16, 32, 64, 128, 512)]
+
+
+def _flash_operands(dev, seed, b, s, skv, h, kvh, d, cache):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    rows = cache or skv
+    k = torch.randn(b, rows, kvh, d, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, rows, kvh, d, generator=gen, device=dev).to(torch.bfloat16)
+    return q, k[:, :skv], v[:, :skv]
+
+
+@pytest.mark.parametrize("case", WGMMA_FLASH, ids=[
+    f"b{c[0]}-s{c[1]}-skv{c[2]}-h{c[3]}-kv{c[4]}-d{c[5]}"
+    f"{'-cache' if c[7] else ''}" for c in WGMMA_FLASH])
+def test_cuda_flash_wgmma_matches_plain_version(cuda, case):
+    """The bf16 kernel against the plain version: packed GQA heads, ragged
+    lengths, kv_start off the tile grid, fully masked rows (zeros), K / V
+    read in place from a larger cache; the table's schedule takes the
+    wgmma path, and a second launch gives the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, wgmma_takes
+    b, s, skv, h, kvh, d, ks, cache = case
+    q, k, v = _flash_operands(cuda, s + d + h, b, s, skv, h, kvh, d, cache)
+    kv_start = torch.tensor(ks, dtype=torch.int32, device=cuda)
+    tile = flash_tiles(torch.bfloat16, s, skv, d)
+    assert tile.kernel == "wgmma" and wgmma_takes(q, k, v, d ** -0.5)
+    before = dict(flash_attention_cuda.launches_by_path)
+    got = flash_attention_cuda(q, k, v, config=tile, kv_start=kv_start)
+    again = flash_attention_cuda(q, k, v, config=tile, kv_start=kv_start)
+    assert flash_attention_cuda.launches_by_path["wgmma"] == before["wgmma"] + 2
+    assert flash_attention_cuda.launches_by_path["fma"] == before["fma"]
+    want = ref.flash_attention_ref(q, k, v, kv_start=kv_start)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    for i, start in enumerate(ks):
+        if start >= skv:                          # no valid column: zeros
+            assert not got[i].any()
+
+
+FLASH_SCHEDULES = sorted(flash_schedules()["wgmma"])
+
+
+@pytest.mark.parametrize("sched", FLASH_SCHEDULES, ids=[
+    f"{bq}x{bk}-s{st}" for bq, bk, st in FLASH_SCHEDULES])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_every_wgmma_schedule_matches_plain_version(cuda, sched, d):
+    from repro_torch.core.tile_config import FlashAttentionConfig
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    bq, bk, stages = sched
+    # S = 333: in the last block of 32 positions the second warpgroup has no
+    # real row and skips all of up to 6 tiles while the first one runs them
+    q, k, v = _flash_operands(cuda, bq + bk + d, 3, 333, 333, 16, 4, d, 512)
+    kv_start = torch.tensor([0, 70, 333], dtype=torch.int32, device=cuda)
+    cfg = FlashAttentionConfig(bq, bk, kernel="wgmma", stages=stages)
+    before = flash_attention_cuda.launches_by_path["wgmma"]
+    got = flash_attention_cuda(q, k, v, config=cfg, kv_start=kv_start)
+    assert flash_attention_cuda.launches_by_path["wgmma"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, kv_start=kv_start)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+def test_cuda_flash_operands_wgmma_does_not_take_run_fma(cuda):
+    """bf16 with head dim 32 or H / KV = 12: the wrapper picks the fma
+    kernel before the launch, and it agrees with the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    for h, kvh, d in ((8, 2, 32), (12, 1, 64)):
+        q, k, v = _flash_operands(cuda, d, 2, 50, 50, h, kvh, d, None)
+        before = dict(flash_attention_cuda.launches_by_path)
+        got = flash_attention_cuda(q, k, v, config=flash_tiles(
+            torch.bfloat16, 50, 50, d))
+        assert flash_attention_cuda.launches_by_path["fma"] == before["fma"] + 1
+        assert flash_attention_cuda.launches_by_path["wgmma"] == before["wgmma"]
+        want = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **BF16)
 
 
 def test_cuda_engine_runs_through_both_kernels(cuda):
@@ -222,3 +315,26 @@ def test_cuda_engine_bf16_goes_through_decode_and_wgmma(cuda):
     paths = kernels.gemm_launches_by_path()
     assert paths["decode"] > 0 and paths["wgmma"] > 0, paths
     assert paths["wmma"] == 0 and paths["fma"] == 0, paths
+
+
+def test_cuda_engine_bf16_prefill_attention_goes_through_wgmma(cuda):
+    """Reduced llama in bf16 with llama3.2-1b's head dim (64) and GQA group
+    (4): every prefill attention of the serve path runs the wgmma kernel."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              attention_impl="flash", dtype="bfloat16",
+                              head_dim=64, num_heads=8, num_kv_heads=2)
+    model = build_model(cfg)
+    params = model.init(1, device=cuda)
+    prompts = [[(i * 7 + 3) % 256 for i in range(n)] for n in (37, 5, 64)]
+    eng = Engine(model, params, ServeConfig(max_batch=2, max_len=128))
+    kernels.reset_launch_counts()
+    eng.generate(prompts, 4)
+    flash = kernels.flash_launches_by_path()
+    assert flash["wgmma"] > 0 and flash["fma"] == 0, flash

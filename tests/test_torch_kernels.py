@@ -124,8 +124,10 @@ def test_tile_table_covers_every_m_and_names_instantiated_tiles():
     assert gemm_tiles(torch.bfloat16, 17, 2048, 2048).kernel == "wgmma"
     assert gemm_tiles(torch.float32, 8, 2048, 2048).kernel == "fma"
     assert gemm_tiles(torch.bfloat16, 8, 1, 1, aligned=False) == TileConfig(16, 64, 64)
-    for s in (1, 32, 33, 4096):
-        assert flash_tiles(s, s, 64) in [t for _, t in H100_FLASH_TILES]
+    for dtype, rows in H100_FLASH_TILES.items():
+        for s in (1, 32, 33, 4096):
+            for d in (16, 64, 128):
+                assert flash_tiles(dtype, s, s, d) in [t for *_, t in rows]
 
 
 @pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 512), (2048, 8192),
@@ -183,12 +185,18 @@ def test_gemm_wrapper_sends_unaligned_operands_to_wmma():
 
 def test_launch_counts_by_path_reset_together():
     from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.gemm import gemm_cuda
     gemm_cuda.launches_by_path["decode"] += 3
     assert kernels.gemm_launches_by_path()["decode"] >= 3
     assert kernels.launch_counts()["gemm"] >= 3
+    flash_attention_cuda.launches_by_path["wgmma"] += 2
+    assert kernels.flash_launches_by_path()["wgmma"] >= 2
+    assert kernels.launch_counts()["flash_attention"] >= 2
     kernels.reset_launch_counts()
     assert set(kernels.gemm_launches_by_path().values()) == {0}
+    assert set(kernels.flash_launches_by_path().values()) == {0}
+    assert set(kernels.flash_launches_by_path()) == {"wgmma", "fma"}
     assert kernels.launch_counts() == {"gemm": 0, "flash_attention": 0}
 
 
@@ -234,7 +242,8 @@ def test_flash_ref_matches_pallas_interpret(case):
     if ks is not None and max(ks) >= skv:      # l == 0 divides by 1: zeros
         assert not _np(got)[int(np.argmax(ks))].any()
     # the GQA front end takes the plain version for CPU tensors
-    front = flash_attention(tq, tk, tv, bq=64, bk=64, kv_start=tks)
+    front = flash_attention(tq, tk, tv, config=flash_tiles(torch.float32, s, skv, d),
+                            kv_start=tks)
     assert torch.equal(front, got)
 
 
@@ -248,3 +257,109 @@ def test_flash_ref_without_kv_start_is_softmax_attention():
                                **BF16)
     np.testing.assert_allclose(_np(ref.attention_ref(tq, tk, tv)), _np(got),
                                **BF16)
+
+
+# the wgmma kernel's shapes (bf16 inputs, head dims 64 / 128, GQA groups of
+# 1, 4 and 8 heads, S not a block multiple, kv_start not a multiple of bk)
+WGMMA_SHAPES = [
+    # (B, S, Skv, H, KV, d, kv_start)
+    (2, 37, 37, 4, 4, 64, [0, 5]),
+    (2, 37, 50, 8, 2, 64, [3, 50]),
+    (1, 20, 20, 8, 1, 128, [7]),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_SHAPES, ids=["g1_d64", "g4_d64_s_lt_skv",
+                                                    "g8_d128"])
+def test_flash_ref_matches_pallas_at_wgmma_shapes(case):
+    b, s, skv, h, kvh, d, ks = case
+    rng = np.random.default_rng(b * 1000 + s + d)
+    jq, tq = _both(rng.standard_normal((b, s, h, d)), jnp.bfloat16)
+    jk, tk = _both(rng.standard_normal((b, skv, kvh, d)), jnp.bfloat16)
+    jv, tv = _both(rng.standard_normal((b, skv, kvh, d)), jnp.bfloat16)
+    jks, tks = jnp.asarray(ks, jnp.int32), torch.tensor(ks, dtype=torch.int32)
+    got = ref.flash_attention_ref(tq, tk, tv, causal=True, kv_start=tks)
+    want = jax_flash(jq, jk, jv, causal=True, bq=16, bk=16, interpret=True,
+                     kv_start=jks)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), **BF16)
+    front = flash_attention(tq, tk, tv, config=flash_tiles(torch.bfloat16, s, skv, d),
+                            kv_start=tks)
+    assert torch.equal(front, got)
+
+
+def test_flash_table_names_instantiated_schedules():
+    """Every row of the flash tile table names a schedule that
+    ``csrc/flash_attention.cu``'s ``dispatch_*`` lines instantiate."""
+    from repro_torch.kernels.flash_attention import instantiated_schedules
+    inst = instantiated_schedules()
+    assert set(inst) == {"fma", "wgmma"}
+    assert all(inst.values())
+    for dtype, rows in H100_FLASH_TILES.items():
+        for *_, tile in rows:
+            assert (tile.bq, tile.bk, tile.stages) in inst[tile.kernel], tile.schedule
+            assert tile.kernel == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    for _, bk, stages in inst["wgmma"]:
+        assert bk in (64, 128) and stages >= 2
+
+
+# (dtype, d, H, KV, operand change, scale, the wgmma kernel takes it)
+FLASH_PATHS = [
+    (torch.bfloat16, 64, 32, 8, None, None, True),        # llama3.2-1b
+    (torch.bfloat16, 128, 8, 1, None, None, True),        # H / KV = 8, d 128
+    (torch.bfloat16, 64, 4, 4, "cache view", None, True),  # k[:, :s] of a cache
+    (torch.float32, 64, 32, 8, None, None, False),
+    (torch.bfloat16, 32, 4, 2, None, None, False),        # head dim 32
+    (torch.bfloat16, 64, 12, 1, None, None, False),       # H / KV = 12
+    (torch.bfloat16, 64, 4, 2, "misaligned base", None, False),
+    (torch.bfloat16, 64, 4, 2, "odd batch stride", None, False),
+    (torch.bfloat16, 64, 4, 2, None, -1.0, False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_PATHS, ids=[
+    "llama", "d128_g8", "cache_view", "f32", "d32", "g12", "misaligned",
+    "odd_stride", "negative_scale"])
+def test_flash_wrapper_path_rule(case):
+    """The wrapper sends operands to the wgmma kernel only where TMA and the
+    packed-head tile take them; it decides from shapes and strides before
+    any launch, and CPU tensors show the same strides."""
+    from repro_torch.kernels.flash_attention import _inner_contiguous, wgmma_takes
+    dtype, d, h, kvh, change, scale, takes = case
+    b, s = 2, 40
+    q = torch.zeros(b, s, h, d, dtype=dtype)
+    k = torch.zeros(b, s, kvh, d, dtype=dtype)
+    if change == "cache view":
+        k = torch.zeros(b, 1024, kvh, d, dtype=dtype)[:, :s]
+    elif change == "misaligned base":
+        k = torch.zeros(b * s * kvh * d + 1, dtype=dtype)[1:].view(b, s, kvh, d)
+    elif change == "odd batch stride":
+        k = torch.zeros(b, s * kvh * d + 1, dtype=dtype)[:, :-1].view(b, s, kvh, d)
+    q, k = _inner_contiguous(q), _inner_contiguous(k)
+    assert wgmma_takes(q, k, k, d ** -0.5 if scale is None else scale) is takes
+
+
+def test_flash_cuda_takes_cuda_tensors_only():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q, k, k, config=flash_tiles(torch.bfloat16, 8, 8, 64))
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header changes the library's name, so a stale
+    build is never loaded."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    assert _build.includes("gemm") == ["hopper.cuh"]
+    assert _build.includes("flash_attention") == ["hopper.cuh"]
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
