@@ -30,7 +30,22 @@ Phases, each printing one JSON line:
    every prefill attention through the wgmma flash kernel.  Then the
    batched ragged prefill against per-prompt prefill, and a float32 pass
    (full width, 2 layers, flash through the fma kernel) whose engine
-   tokens must equal the per-prompt oracle's exactly.
+   tokens must equal the per-prompt oracle's exactly.  The prefix cache is
+   on (the default); these prompts share no prefix and hit nothing.
+5. ``serve_features`` — the same model and weights through the paths the
+   serving slice after the first added, each pass with the launch counts
+   set to 0 just before and read just after, each requiring every GEMM on
+   the decode or wgmma kernel and every prefill attention on the wgmma
+   flash kernel: (a) the wave scheduler on the serve phase's 12 requests
+   (one host transfer per wave); (b) the prefix cache, cold then warm, on
+   8 prompts sharing a 256-token prefix plus 4 exact repeats (>= 4 full and
+   >= 7 partial warm hits, each full hit's first token equal to its cold
+   one, no page left after ``clear_prefix_cache``); (c) sampling at
+   temperature 0.8 (two fresh engines, equal tokens); (d) the int8 KV cache
+   (forced onto the wave scheduler); (e) the threaded ``Server`` with
+   stream callbacks, 4 requests more submitted while it drains; (f) float32
+   exactness of the wave, prefix-cache (cold and warm) and int8 engines
+   against the per-prompt oracle (2 layers).
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -493,7 +508,11 @@ def phase_serve(torch):
     serve.update(prefill_batched_vs_solo_max_abs=diff, prefill_tol=tol,
                  prefill_argmax_agree=agree)
     assert torch.isfinite(batched).all() and diff <= tol, (diff, tol)
-    del params, eng
+    # the prefix cache is on by default: these prompts share no prefix
+    assert st["prefix_cache"]["enabled"], st["prefix_cache"]
+    assert st["prefix_cache"]["hits_full"] == 0, st["prefix_cache"]
+    serve["prefix_cache"] = st["prefix_cache"]
+    del eng
     torch.cuda.empty_cache()
 
     # float32 pass: full width, 2 layers, tokens exact against the oracle
@@ -510,7 +529,231 @@ def phase_serve(torch):
     serve["f32_pass"] = {"layers": 2, "requests": len(prompts32),
                          "max_new": 8, "tokens_equal_oracle": got == want}
     emit(serve)
-    return launches, {"gemm": gemm_paths, "flash_attention": flash_paths}
+    ctx = {"cfg": cfg, "model": model, "params": params, "prompts": prompts,
+           "outs": outs, "m32": m32, "p32": p32, "prompts32": prompts32}
+    return launches, {"gemm": gemm_paths, "flash_attention": flash_paths}, ctx
+
+
+# ---------------------------------------------------------------------------
+# phase: serve_features
+# ---------------------------------------------------------------------------
+
+def prefix_traffic(rng, vocab: int, prefix, repeat_of):
+    """8 prompts sharing ``prefix`` (256 tokens: 16 pages of 16), each with
+    its own suffix of 5-60 tokens, then 4 exact repeats of ``repeat_of``'s
+    first four (of the 8 themselves when ``repeat_of`` is None)."""
+    fresh = [prefix + rng.integers(0, vocab, size=int(n)).tolist()
+             for n in rng.integers(5, 61, size=8)]
+    return fresh + [list(p) for p in (repeat_of or fresh)[:4]]
+
+
+def drain(eng, Request, prompts, max_new):
+    handles = [eng.submit(Request(prompt=p, max_new_tokens=max_new))
+               for p in prompts]
+    eng.run()
+    return [h.result(timeout=0) for h in handles]
+
+
+def phase_serve_features(torch, ctx):
+    """The serve paths this slice added, at full width: a. wave, b. prefix
+    cache cold then warm, c. sampling, d. int8 KV, e. the threaded Server
+    with streaming, f. float32 exactness of the wave, prefix-cache and int8
+    engines against the per-prompt oracle.  Each of a-e resets the launch
+    counts before it starts and reads them after; each requires every GEMM
+    on the decode or wgmma kernel and every prefill attention on the wgmma
+    flash kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.serve import (Engine, Request, ServeConfig, Server,
+                                   generate_per_prompt)
+
+    cfg, model, params = ctx["cfg"], ctx["model"], ctx["params"]
+    prompts, cont_outs = ctx["prompts"], ctx["outs"]
+    vocab = cfg.vocab_size
+    out = {"phase": "serve_features", "card": torch.cuda.get_device_name(0)}
+
+    def serve_cfg(**kw):
+        base = dict(max_batch=8, max_len=1024, decode_chunk=8, profile=True)
+        base.update(kw)
+        return ServeConfig(**base)
+
+    def measured(name, fn):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, engines = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gemm = kernels.gemm_launches_by_path()
+        flash = kernels.flash_launches_by_path()
+        assert gemm["decode"] > 0 and gemm["wgmma"] > 0, (name, gemm)
+        assert gemm["wmma"] == 0 and gemm["fma"] == 0, (name, gemm)
+        assert flash["wgmma"] > 0 and flash["fma"] == 0, (name, flash)
+        stats = [e.stats() for e in engines]
+        pre = sum(s["prefill_seconds"] for s in stats)
+        dec = sum(s["decode_seconds"] for s in stats)
+        toks = sum(s["tokens_generated"] for s in stats)
+        res.update(wall_seconds=wall, prefill_seconds=pre,
+                   decode_seconds=dec, tokens_generated=toks,
+                   decode_tok_per_s=toks / dec if dec else None,
+                   gemm_launches_by_path=gemm,
+                   flash_launches_by_path=flash,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[name] = res
+        return res
+
+    prompt_toks = sum(len(p) for p in prompts)
+
+    def wave():
+        eng = Engine(model, params, serve_cfg(scheduler="wave"))
+        got = eng.generate(prompts, 32)
+        st = eng.stats()
+        assert st["scheduler"] == "wave", st["scheduler"]
+        assert st["device_transfers"] == st["waves"] >= 2, st
+        assert all(len(o) == 32 and all(0 <= t < vocab for t in o)
+                   for o in got)
+        ctx["wave_outs"] = got
+        return {"waves": st["waves"], "device_transfers":
+                st["device_transfers"],
+                "prefill_tok_per_s": prompt_toks / st["prefill_seconds"],
+                "share_equal_to_continuous": float(np.mean(
+                    [a == b for a, b in zip(got, cont_outs)]))}, [eng]
+    measured("a_wave", wave)
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, vocab, size=256).tolist()
+    cold_traffic = prefix_traffic(rng, vocab, prefix, None)
+    warm_traffic = prefix_traffic(rng, vocab, prefix, cold_traffic)
+
+    def prefix_cache():
+        eng = Engine(model, params, serve_cfg(page_size=16))
+        cold = drain(eng, Request, cold_traffic, 32)
+        pc0 = dict(eng.stats()["prefix_cache"])
+        warm = drain(eng, Request, warm_traffic, 32)
+        st = eng.stats()
+        pc = {k: st["prefix_cache"][k] - pc0[k] for k in
+              ("hits_full", "hits_partial", "misses",
+               "prefill_tokens_saved", "pages_write_skipped")}
+        assert st["device_transfers"] == st["chunks"], st
+        assert pc["hits_full"] >= 4 and pc["hits_partial"] >= 7, pc
+        first_cold = {tuple(p): r.tokens[0] for p, r in
+                      zip(cold_traffic, cold)}
+        full = [(p, r) for p, r in zip(warm_traffic, warm)
+                if r.prefix_hit == "full"]
+        assert len(full) >= 4
+        assert all(r.tokens[0] == first_cold[tuple(p)] for p, r in full)
+        eng.clear_prefix_cache()
+        used = eng.stats()["pages"]["used_pages"]
+        assert used == 0, used
+        return {"cold": {k: pc0[k] for k in pc}, "warm": pc,
+                "full_hit_first_tokens_equal_cold": True,
+                "used_pages_after_clear": used,
+                "prefill_tok_per_s": sum(len(p) for p in cold_traffic
+                                         + warm_traffic)
+                / st["prefill_seconds"]}, [eng]
+    measured("b_prefix_cache", prefix_cache)
+
+    def sampling():
+        engs = [Engine(model, params, serve_cfg(temperature=0.8, seed=0))
+                for _ in range(2)]
+        a, b = (e.generate(prompts, 32) for e in engs)
+        assert a == b
+        assert all(0 <= t < vocab for o in a for t in o)
+        for e in engs:
+            st = e.stats()
+            assert st["device_transfers"] == st["chunks"], st
+        return {"tokens_equal_across_engines": True,
+                "share_equal_to_greedy": float(np.mean(
+                    [x == y for x, y in zip(a, cont_outs)])),
+                "prefill_tok_per_s": 2 * prompt_toks / sum(
+                    e.stats()["prefill_seconds"] for e in engs)}, engs
+    measured("c_sampling", sampling)
+
+    model_q = build_model(dataclasses.replace(cfg, kv_quant=True))
+
+    def int8():
+        eng = Engine(model_q, params, serve_cfg())
+        got = eng.generate(prompts, 32)
+        st = eng.stats()
+        assert st["scheduler"] == "wave", st["scheduler"]
+        assert st["scheduler_forced"] == "int8-quantized KV cache", st
+        assert st["device_transfers"] == st["waves"], st
+        assert all(len(o) == 32 and all(0 <= t < vocab for t in o)
+                   for o in got)
+        return {"scheduler": st["scheduler"],
+                "scheduler_forced": st["scheduler_forced"],
+                "share_equal_to_wave": float(np.mean(
+                    [x == y for x, y in zip(got, ctx["wave_outs"])])),
+                "prefill_tok_per_s": prompt_toks / st["prefill_seconds"]
+                }, [eng]
+    measured("d_int8_kv", int8)
+
+    def server():
+        eng = Engine(model, params, serve_cfg())
+        events = [[] for _ in range(8)]
+        with Server(eng) as srv:
+            handles = [srv.submit(Request(prompt=p, max_new_tokens=32,
+                                          stream=events[i].append))
+                       for i, p in enumerate(prompts[:4])]
+            # the rest arrive while the first drain runs
+            deadline = time.perf_counter() + 60
+            while not events[0] and not handles[0].done:
+                assert time.perf_counter() < deadline, "no stream event"
+                time.sleep(0.001)
+            handles += [srv.submit(Request(prompt=p, max_new_tokens=32,
+                                           stream=events[4 + i].append))
+                        for i, p in enumerate(prompts[4:8])]
+            results = [h.result(timeout=60) for h in handles]
+        sst = srv.stats()["server"]     # after stop(): the drains counted
+        for ev, res in zip(events, results):
+            *toks, last = ev
+            assert [e.token for e in toks] == res.tokens
+            assert [e.index for e in toks] == list(range(len(toks)))
+            assert last.finished and last.token is None
+            assert last.finish_reason == res.finish_reason
+        assert sst["served"] == 8 and sst["failed_drains"] == 0, sst
+        return {"requests": 8, "streams_equal_results": True,
+                "server": sst}, [eng]
+    measured("e_server", server)
+
+    # f. float32 exactness (full width, 2 layers, fma flash)
+    m32, p32, prompts32 = ctx["m32"], ctx["p32"], ctx["prompts32"]
+    want = generate_per_prompt(m32, p32, prompts32, 8, max_len=512)
+    cfg32 = dict(max_batch=4, max_len=512, decode_chunk=8,
+                 capacity_tokens=8192)
+    f = {}
+    got = Engine(m32, p32, ServeConfig(scheduler="wave", **cfg32)).generate(
+        prompts32, 8)
+    assert got == want, ("wave f32", got, want)
+    f["wave_equal_oracle"] = True
+    rng32 = np.random.default_rng(2)
+    pre32 = rng32.integers(0, vocab, size=256).tolist()
+    cold32 = prefix_traffic(rng32, vocab, pre32, None)
+    warm32 = prefix_traffic(rng32, vocab, pre32, cold32)
+    eng = Engine(m32, p32, ServeConfig(page_size=16, **cfg32))
+    for name, traffic in (("cold", cold32), ("warm", warm32)):
+        got = [r.tokens for r in drain(eng, Request, traffic, 8)]
+        want_t = generate_per_prompt(m32, p32, traffic, 8, max_len=512)
+        assert got == want_t, (f"prefix cache f32 {name}", got, want_t)
+        f[f"prefix_cache_{name}_equal_oracle"] = True
+    pc = eng.stats()["prefix_cache"]
+    assert pc["hits_full"] >= 4 and pc["hits_partial"] >= 7, pc
+    f["prefix_cache_hits"] = {k: pc[k] for k in ("hits_full",
+                                                 "hits_partial", "misses")}
+    m32q = build_model(dataclasses.replace(m32.cfg, kv_quant=True))
+    got = Engine(m32q, p32, ServeConfig(**cfg32)).generate(prompts32, 8)
+    want_q = generate_per_prompt(m32q, p32, prompts32, 8, max_len=512)
+    assert got == want_q, ("int8 f32", got, want_q)
+    f["int8_wave_equal_int8_oracle"] = True
+    f["int8_tokens_equal_plain_oracle_share"] = float(np.mean(
+        [x == y for x, y in zip(want_q, want)]))
+    out["f_float32"] = f
+    emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -532,9 +775,10 @@ def _sums(mine):
             if device_ms else None}
 
 
-def summarize(rows, launches, paths):
+def summarize(rows, launches, paths, features):
     """One entry per kernel: its main-path cases summed (each shape once),
-    and the same sums per path with the serve phase's launches by path."""
+    and the same sums per path with the serve phase's launches by path;
+    ``launches_by_pass`` the launches by path of each serve_features pass."""
     out = []
     for kname, route_src, repl, repl_fn in KERNELS:
         mine = [r for r in rows if r["name"] == kname and r["main_path"]]
@@ -546,6 +790,11 @@ def summarize(rows, launches, paths):
         sums = _sums(mine)
         entry.update(sums, kernel_ms=sums["ms"])
         entry["launches_by_path"] = paths[kname]
+        key = ("gemm_launches_by_path" if kname == "gemm"
+               else "flash_launches_by_path")
+        entry["launches_by_pass"] = {name: res[key]
+                                     for name, res in features.items()
+                                     if isinstance(res, dict) and key in res}
         entry["paths"] = {p: _sums([r for r in mine if r["path"] == p])
                           for p in sorted({r["path"] for r in mine})}
         out.append(entry)
@@ -580,9 +829,10 @@ def main(argv=None) -> int:
             with open(os.path.join(args.out, f"ptxas_{name}.log"), "w") as f:
                 f.write(log)
     rows = phase_kernels(torch, args.out)
-    launches, paths = phase_serve(torch)
+    launches, paths, ctx = phase_serve(torch)
+    features = phase_serve_features(torch, ctx)
     print(card, flush=True)
-    emit({"kernels": summarize(rows, launches, paths)})
+    emit({"kernels": summarize(rows, launches, paths, features)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -5,7 +5,8 @@ collapsed into one flat token axis of ``num_pages * page_size`` entries.  A
 decode chunk gathers a dense right-aligned ``(B, W)`` view of every live
 row's KV (``paged_gather``) and scatters the chunk's new columns back
 (``paged_scatter``).  Index arrays come from the host block tables
-(``repro_torch.serve.kv_pages``).
+(``repro_torch.serve.kv_pages``).  ``paged_copy`` copies one page into
+another: the prefix cache's copy-on-write.
 
 Out-of-range indices follow the JAX reference, where torch would raise:
 both wrap indices in [-n, 0); beyond that a gather (``jnp.take``'s default
@@ -37,6 +38,22 @@ def paged_gather(pool_flat: torch.Tensor, idx) -> torch.Tensor:
     flat = torch.where(valid[:, None, None], flat, float("nan"))
     lead = tuple(pool_flat.shape[:-3])
     return flat.reshape(lead + tuple(idx.shape) + tuple(pool_flat.shape[-2:]))
+
+
+def paged_copy(pool_flat: torch.Tensor, src_page: int, dst_page: int,
+               page_size: int) -> torch.Tensor:
+    """Copy one page's ``page_size`` token rows to another page, in place
+    (the prefix cache's copy-on-write of the page that straddles a full
+    hit's divergence point).  A plain copy on the token axis: the copied KV
+    has the bits prefill scattered into the source page.  Page ids past the
+    pool clamp, as ``jax.lax.dynamic_slice`` clamps its start."""
+    axis = pool_flat.ndim - 3
+    n = pool_flat.shape[axis]
+    src0 = min(max(int(src_page) * page_size, 0), n - page_size)
+    dst0 = min(max(int(dst_page) * page_size, 0), n - page_size)
+    src = pool_flat.narrow(axis, src0, page_size).clone()
+    pool_flat.narrow(axis, dst0, page_size).copy_(src)
+    return pool_flat
 
 
 def paged_scatter(pool_flat: torch.Tensor, idx, cols: torch.Tensor) -> torch.Tensor:

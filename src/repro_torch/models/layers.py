@@ -145,6 +145,21 @@ def _sdpa_chunked(q, k, v, *, causal: bool, q_offset: int,
                       for r in range(0, sq, chunk)], dim=1)
 
 
+def kv_quantize(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization of a (B, S, KV, hd)
+    slab -> (int8 values, f32 scales (B, S, KV)).  Division in f32 and
+    round-half-to-even, as the reference: the same bits on the same input."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 #: fallback reasons already logged this process (each is logged once)
 _FLASH_FALLBACKS_LOGGED = set()
 
@@ -199,7 +214,9 @@ def attention(
     With ``kv_cache`` the new K/V are written at ``cache_offset`` and
     attention runs over the cache.  The write is in place: the cache
     tensors passed in are the ones returned (a functional copy per layer
-    and step would double the cache's memory traffic).  ``kv_start`` (B,)
+    and step would double the cache's memory traffic).  An int8 cache
+    (``{"q": int8, "s": f32}`` per K and V) stores the quantized K/V and
+    attention reads them dequantized.  ``kv_start`` (B,)
     masks each row's left pad.  ``attn_impl="flash"`` routes every eligible
     call (see :func:`flash_fallback_reason`) through the flash kernel.
     """
@@ -228,20 +245,26 @@ def attention(
     q_offset = 0
     if kv_cache is not None:
         ck, cv = kv_cache
-        if isinstance(ck, dict):
-            raise NotImplementedError(
-                "int8 KV cache: not ported yet (ROADMAP.md queue 1, item 5)")
         off = int(cache_offset)
-        ck[:, off:off + s] = k.to(ck.dtype)
-        cv[:, off:off + s] = v.to(cv.dtype)
-        k, v = ck, cv
+        if isinstance(ck, dict):   # int8-quantized cache: {"q": i8, "s": f32}
+            for leaf, x_new in ((ck, k), (cv, v)):
+                xq, xs = kv_quantize(x_new)
+                leaf["q"][:, off:off + s] = xq
+                leaf["s"][:, off:off + s] = xs
+            k = kv_dequantize(ck["q"], ck["s"], k.dtype)
+            v = kv_dequantize(cv["q"], cv["s"], v.dtype)
+        else:
+            ck[:, off:off + s] = k.to(ck.dtype)
+            cv[:, off:off + s] = v.to(cv.dtype)
+            k, v = ck, cv
         q_offset = off
         kv_len = off + s
         new_cache = (ck, cv)
 
     if use_flash:
         # With a cache the routing guarantees offset 0 (prefill): attend
-        # over exactly the s columns just written, read back from the cache.
+        # over exactly the s columns just written, read back from the cache
+        # (for an int8 cache, dequantized, as the chunked path reads them).
         from repro_torch.core import flash_attention
         kf, vf = (k[:, :s], v[:, :s]) if kv_cache is not None else (k, v)
         out = flash_attention(q, kf, vf, causal=causal, kv_start=kv_start)

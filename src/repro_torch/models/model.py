@@ -48,7 +48,4 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the dense family is "
             f"(ROADMAP.md queue 1, item 6: the other families)")
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "int8 KV cache: not ported yet (ROADMAP.md queue 1, item 5)")
     return Model(cfg=cfg, template=T.template(cfg))

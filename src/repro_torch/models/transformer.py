@@ -4,7 +4,8 @@ the GEMM kernel and the flash kernel.
 Layer params are stacked on a leading "layer" dim, as in the reference; the
 stack runs as a Python loop over that dim where the reference uses
 ``lax.scan``.  KV caches are ``{"self": (K, V)}`` with K, V of shape
-(L, B, S, KV, hd), updated in place.
+(L, B, S, KV, hd), updated in place; an int8 cache (``cfg.kv_quant``) holds
+``{"q", "s"}`` dicts in place of K and V.
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ def _run_dense_stack(cfg, blocks, x, positions, caches=None,
                      cache_offset=None, kv_start=None):
     """Loop over the stacked layers.  Returns (x, caches_or_None)."""
     for i in range(cfg.num_layers):
-        cache = None if caches is None else (caches[0][i], caches[1][i])
+        cache = None if caches is None else tuple(_layer(c, i) for c in caches)
         x, _ = _dense_block(cfg, _layer(blocks, i), x, positions,
                             kv_cache=cache, cache_offset=cache_offset,
                             kv_start=kv_start)
@@ -125,14 +126,18 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None):
-    """Zeroed KV cache ``{"self": (K, V)}``, each (L, B, max_len, KV, hd)."""
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "int8 KV cache: not ported yet (ROADMAP.md queue 1, item 5)")
+    """Zeroed KV cache ``{"self": (K, V)}``, each (L, B, max_len, KV, hd);
+    with ``cfg.kv_quant`` each of K and V is ``{"q": int8 (L, B, max_len,
+    KV, hd), "s": f32 scales (L, B, max_len, KV)}``."""
     dtype = dtype or getattr(torch, cfg.dtype)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     dev = resolve_device(device)
+    if cfg.kv_quant:
+        return {"self": tuple(
+            {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
+             "s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev)}
+            for _ in range(2))}
     return {"self": (torch.zeros(shape, dtype=dtype, device=dev),
                      torch.zeros(shape, dtype=dtype, device=dev))}
 

@@ -1,24 +1,50 @@
 """Public request/response types for the serve engine (host-side only).
 
-* :class:`Request` — what a caller wants generated (prompt, budget).
-  ``Engine.submit(Request)`` returns a :class:`RequestHandle`.
+* :class:`Request` — what a caller wants generated (prompt, budget, optional
+  per-token stream callback).  ``Engine.submit(Request)`` returns a
+  :class:`RequestHandle`.
+* :class:`StreamEvent` — one token (or the terminal event) delivered to a
+  request's ``stream`` callback when its tokens reach the host: at each
+  decode-chunk boundary (continuous scheduler) or at the wave's single
+  transfer (wave scheduler).
 * :class:`GenerationResult` — the finished request: tokens, finish reason,
-  TTFT and throughput.
-* :class:`RequestHandle` — a future for one request; ``result()`` returns
-  it once the engine has drained it.
+  TTFT and throughput, and how much of the prompt the prefix cache served.
+* :class:`RequestHandle` — a future for one request; ``result()`` blocks
+  until the engine drains it (a :class:`repro_torch.serve.server.Server`
+  resolves handles from its worker thread).
 
-Streaming callbacks and the prefix-cache provenance of the JAX package's
-API come with the server and prefix-cache slices.
+The JAX package's deprecated positional ``submit(prompt, n)`` surface is
+not part of the port.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
-#: finish reasons carried by GenerationResult
+#: finish reasons carried by GenerationResult / terminal StreamEvent
 FINISH_STOP = "stop"        # the EOS token was emitted
 FINISH_LENGTH = "length"    # the max_new_tokens budget was exhausted
+
+#: prefix-cache provenance values (``None`` on GenerationResult = cold)
+PREFIX_HIT_FULL = "full"        # whole prompt served from cache, no prefill
+PREFIX_HIT_PARTIAL = "partial"  # page-aligned prefix shared, prefill re-run
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamEvent:
+    """One streamed token (or the terminal event) for a request.
+
+    Token events arrive in order with ``finished=False``; the terminal
+    event carries ``token=None``, ``finished=True`` and the finish reason.
+    ``index`` is the token's position in the generated sequence (the count
+    of tokens delivered so far, for the terminal event).
+    """
+    request_id: int
+    token: Optional[int]
+    index: int
+    finished: bool = False
+    finish_reason: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +54,19 @@ class Request:
     Args:
       prompt: non-empty token-id sequence.
       max_new_tokens: decode budget (>= 1).
+      row: index of this request in per-request input arrays (the JAX
+        package's ``extra_inputs``; the dense family has none, so the port
+        only carries it — ``generate`` fills it, a Server rejects it).
+      stream: optional callback invoked with a :class:`StreamEvent` per
+        generated token plus one terminal event, from the thread driving
+        the engine (the server's worker thread in server mode).
       temperature: optional assertion of the engine's sampling temperature;
         a Request naming another one is rejected at submit.
     """
     prompt: Sequence[int]
     max_new_tokens: int
+    row: Optional[int] = None
+    stream: Optional[Callable[[StreamEvent], None]] = None
     temperature: Optional[float] = None
 
 
@@ -41,7 +75,9 @@ class GenerationResult:
     """One finished request, as returned by ``Engine.run()``.
 
     ``ttft_s`` is submit-to-first-token-host-visible; ``tok_per_s`` is
-    ``len(tokens) / total_s``.
+    ``len(tokens) / total_s``.  ``prefix_hit`` is ``"full"`` /
+    ``"partial"`` / ``None`` with ``cached_prefix_tokens`` counting the
+    prompt tokens served from the prefix cache.
     """
     request_id: int
     tokens: List[int]
@@ -50,6 +86,8 @@ class GenerationResult:
     ttft_s: Optional[float]
     total_s: float
     tok_per_s: float
+    prefix_hit: Optional[str] = None
+    cached_prefix_tokens: int = 0
 
 
 class RequestHandle:

@@ -1,47 +1,74 @@
-"""Continuous-batching serve engine over a paged KV cache.
+"""Device-resident serve engine over a fixed pool of ``max_batch`` KV slots,
+with two schedulers sharing one model path.
 
-Requests are admitted into a fixed pool of ``max_batch`` slots; KV memory is
-a pool of pages measured in tokens (host bookkeeping in
-:mod:`repro_torch.serve.kv_pages`).  The loop body is one *chunk boundary*:
-admit every queue-head request that fits (one batched ragged prefill),
-grow live block tables for the next chunk (preempting the youngest rows if
-the pool runs dry), run one decode chunk, then evict the rows that finished.
-
-* **Decode chunk** — gather every live row's KV into a dense right-aligned
-  view, run ``decode_chunk`` greedy steps, scatter the chunk's new KV
-  columns back to their pages.  The model never sees a page table.
-* **One host transfer per chunk** — the reference ends its ``while_loop``
-  early once every row is done; reading that flag here would be a host
-  sync per token.  So the chunk always runs its steps, with finished rows
-  masked exactly as the reference's loop body masks them (``buf``,
-  ``lens``, ``done``).  Steps past the point where every row is done only
-  write KV that nothing reads (TRASH pages, or pages of rows that are
-  evicted at this boundary) and advance a ``cur`` no live row carries, so
-  the tokens are the same.  The chunk's token buffer and counts reach the
-  host in one copy.
+* **Continuous (default)** — continuous batching over a *paged* KV cache:
+  KV memory is a pool of pages measured in tokens (host bookkeeping in
+  :mod:`repro_torch.serve.kv_pages`).  The loop body is one *chunk
+  boundary*: poll the server's ingest hook, admit every queue-head request
+  that fits (one batched ragged prefill), grow live block tables for the
+  next chunk (preempting the youngest rows if the pool runs dry), run one
+  decode chunk, stream its tokens, then evict the rows that finished.  A
+  decode chunk gathers every live row's KV into a dense right-aligned
+  view, runs ``decode_chunk`` steps and scatters the chunk's new KV
+  columns back to their pages; the model never sees a page table.
+* **Wave (``ServeConfig(scheduler="wave")``)** — requests are packed into
+  waves by capacity (``max(prompt) + max(max_new) <= max_len``), admitted
+  into free slots of one dense cache (``init_cache(max_batch, max_len)``,
+  allocated once per engine and reused across waves: stale columns are
+  never read, thanks to per-slot ``kv_start`` and length masking), and
+  evicted when the wave ends.  int8-KV models always take this path.
+* **One host transfer per chunk or wave** — the reference ends its
+  ``while_loop`` early once every row is done; reading that flag here would
+  be a host sync per token.  So a chunk always runs its steps (a wave runs
+  ``max(max_new)`` of them, the most any of its rows can take), with
+  finished rows masked exactly as the reference's loop body masks them
+  (``buf``, ``lens``, ``done``).  Steps past the point where every row is
+  done only write KV that nothing reads and advance a ``cur`` no live row
+  carries, so the tokens are the same.  The token buffer and counts reach
+  the host in one copy.
+* **Sampling** — greedy is exact ``argmax``; ``temperature > 0`` samples by
+  Gumbel-max, ``argmax(logits / T + G)`` (how ``jax.random.categorical``
+  samples), with ``G`` drawn on the engine's device from a
+  ``torch.Generator`` re-seeded from ``ServeConfig.seed`` at every
+  ``run()``: repeated runs give the same samples.  Noise is drawn for all
+  ``max_batch`` rows at every step, so the stream does not depend on which
+  rows are live, and sampling adds no host sync.
+* **Prefix cache** (continuous only, :mod:`repro_torch.serve.prefix_cache`)
+  — a trie of page-sized token chunks pins prefilled prompt pages with
+  refcounts.  A full-prompt hit skips prefill (shared pages, a
+  copy-on-write of the tail page, and the first token sampled from the
+  cached last-position logits: bit-exact under greedy decoding); a
+  page-aligned partial hit shares the prefix pages and re-runs prefill with
+  the shared columns' writes redirected to the TRASH page.  LRU eviction
+  yields pages before live rows are preempted.
+* **Streaming** — a request's ``stream`` callback gets one
+  :class:`~repro_torch.serve.api.StreamEvent` per token when its tokens
+  reach the host (each chunk boundary, or the wave's single transfer) and
+  a terminal event; :class:`repro_torch.serve.server.Server` drives the
+  engine from a worker thread through the ingest hook.
 * **Ragged batches** — prompts are right-aligned (left-padded); the per-slot
   pad offset ``kv_start`` masks pad columns and restarts positions at each
   row's first real token, so each row decodes what it would decode alone.
-  Prompt lengths are bucketed to powers of two (min 8).
-
-Greedy decoding only; the wave scheduler, the prefix cache, sampling,
-streaming and the threaded server come in later slices (ROADMAP.md).
+  Prompt lengths are bucketed to powers of two (min 8; a wave's bucket is
+  clamped so the bucket plus its decode budget fits ``max_len``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import kernels
 from repro_torch.core.device import resolve_device
-from repro_torch.kernels.paged import paged_gather, paged_scatter
+from repro_torch.kernels.paged import paged_copy, paged_gather, paged_scatter
 from repro_torch.models.model import Model
 from repro_torch.serve import api, kv_pages
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.reference import greedy
+from repro_torch.serve.stats_schema import SCHEMA_VERSION
 
 _PLEN_BUCKET_MIN = 8
 #: tokens per page when ServeConfig.page_size is None (the reference
@@ -49,6 +76,10 @@ _PLEN_BUCKET_MIN = 8
 DEFAULT_PAGE_SIZE = 16
 #: per-request latency records kept for percentile stats
 _LATENCY_WINDOW = 4096
+#: smallest uniform draw for Gumbel noise (``jax.random.gumbel``'s minval)
+_TINY = torch.finfo(torch.float32).tiny
+#: batch-dim kind of each non-paged cache leaf (``_fixed_rows``)
+_FIXED_KINDS = {"cross": "kv", "ssm": "ssm", "conv": "conv"}
 
 
 def _percentiles(xs: List[float]) -> Dict[str, Optional[float]]:
@@ -58,11 +89,15 @@ def _percentiles(xs: List[float]) -> Dict[str, Optional[float]]:
     return {"p50": float(q[0]), "p95": float(q[1]), "p99": float(q[2])}
 
 
-def _bucket_len(n: int) -> int:
-    """Smallest power-of-two bucket >= ``n`` (min 8)."""
+def _bucket_len(n: int, cap: Optional[int] = None) -> int:
+    """Smallest power-of-two bucket >= ``n`` (min 8), clamped to ``cap``.
+    When ``cap < n`` the cap itself is returned (< n) and the caller falls
+    back to another size."""
     b = _PLEN_BUCKET_MIN
     while b < n:
         b *= 2
+    if cap is not None and b > cap:
+        b = cap
     return b
 
 
@@ -70,15 +105,20 @@ def _bucket_len(n: int) -> int:
 class ServeConfig:
     max_batch: int = 8                # KV-cache slots
     max_len: int = 512                # per-slot capacity (prompt + new)
-    temperature: float = 0.0          # only 0 (greedy) in this slice
+    temperature: float = 0.0          # 0 => greedy
     eos_token: Optional[int] = None
+    seed: int = 0                     # sampling seed, re-applied every run()
     profile: bool = False             # synchronize after prefill to split timings
+    # "continuous" (paged KV, admit/evict at chunk boundaries) or "wave".
+    # int8-KV models run "wave" either way.
+    scheduler: str = "continuous"
     page_size: Optional[int] = None   # tokens per KV page; None -> 16
     # Paged-pool capacity in TOKENS; None = max_batch * max_len.
     capacity_tokens: Optional[int] = None
     # Tokens decoded per chunk between scheduling boundaries.  Power of two.
     decode_chunk: int = 8
-    prefix_cache: bool = False        # only False in this slice
+    # Share prefilled prompt KV across requests (continuous scheduler only).
+    prefix_cache: bool = True
     device: Optional[str] = None      # None -> the card ("cuda")
 
 
@@ -88,15 +128,63 @@ class _Request:
     prompt: List[int]
     max_new: int
     handle: api.RequestHandle
+    row: Optional[int] = None         # Request.row, carried for callers
+    stream: Optional[Callable[[api.StreamEvent], None]] = None
     slot: Optional[int] = None
     tokens: Optional[List[int]] = None
     result: Optional[api.GenerationResult] = None
     t_submit: float = 0.0
     t_first: Optional[float] = None   # first token host-visible (TTFT end)
+    prefix_hit: Optional[str] = None  # "full" | "partial" | None
+    cached_prefix_tokens: int = 0
+
+
+class _SlotScheduler:
+    """Admit/evict bookkeeping over the fixed pool of KV-cache slots."""
+
+    def __init__(self, n_slots: int):
+        self.n_slots = n_slots
+        self._free = list(range(n_slots))
+        self._use_count = [0] * n_slots
+        self.admitted = 0
+        self.evicted = 0
+
+    def admit(self, req: _Request) -> int:
+        if not self._free:
+            raise RuntimeError("no free KV-cache slot")
+        slot = self._free.pop(0)
+        req.slot = slot
+        self._use_count[slot] += 1
+        self.admitted += 1
+        return slot
+
+    def evict(self, req: _Request) -> None:
+        self._free.append(req.slot)
+        self._free.sort()
+        self.evicted += 1
+
+    @property
+    def reuses(self) -> int:
+        return sum(max(c - 1, 0) for c in self._use_count)
+
+
+def _fixed_rows(tree, slot: int, kind: Optional[str] = None):
+    """Views of ``slot``'s rows of every leaf of a fixed-cache tree (the
+    non-paged leaves: cross-KV and SSM state with the batch dim at -4, conv
+    state at -3), in a fixed order.  The dense family has none."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _fixed_rows(v, slot, _FIXED_KINDS.get(k, kind))
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _fixed_rows(v, slot, kind)
+    else:
+        yield tree.select(tree.ndim - (3 if kind == "conv" else 4), slot)
 
 
 class Engine:
-    """Continuous-batching engine over a fixed slot pool and a paged KV pool.
+    """Serve engine over a fixed slot pool: continuous batching over a paged
+    KV pool, or waves over a dense cache (``ServeConfig.scheduler``).
 
     ``generate`` is the batched entry point; ``submit``/``run`` expose the
     request queue.  Runs on ``ServeConfig.device`` (default: the card); the
@@ -105,13 +193,13 @@ class Engine:
 
     def __init__(self, model: Model, params, cfg: ServeConfig):
         self.device = resolve_device(cfg.device)
-        if cfg.temperature != 0.0:
+        if model.cfg.family != "dense":
             raise NotImplementedError(
-                "temperature > 0: only greedy decoding is ported "
-                "(sampling: ROADMAP.md queue 1, item 5)")
-        if cfg.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True: not ported yet (ROADMAP.md queue 1, item 5)")
+                f"family {model.cfg.family!r}: only the dense family is "
+                f"ported (ROADMAP.md queue 1, item 6)")
+        if cfg.scheduler not in ("continuous", "wave"):
+            raise ValueError(f"unknown scheduler {cfg.scheduler!r}; "
+                             f"expected 'continuous' or 'wave'")
         chunk = int(cfg.decode_chunk)
         if chunk < 1 or chunk & (chunk - 1):
             raise ValueError(
@@ -123,32 +211,78 @@ class Engine:
         self.model = model
         self.params = params
         self.cfg = cfg
+        self.hardware = (torch.cuda.get_device_name(self.device)
+                         if self.device.type == "cuda" else "cpu")
         self._chunk = chunk
+        self._scheduler = cfg.scheduler
+        self._scheduler_forced: Optional[str] = None
+        if cfg.scheduler == "continuous" and model.cfg.kv_quant:
+            # the paged pool holds plain K/V leaves; the {q, s} layout of an
+            # int8 cache keeps the dense wave path
+            self._scheduler = "wave"
+            self._scheduler_forced = "int8-quantized KV cache"
         self._capacity_tokens = int(cfg.capacity_tokens
                                     or cfg.max_batch * cfg.max_len)
         self._page_size = min(max(int(cfg.page_size or DEFAULT_PAGE_SIZE), 1),
                               self._capacity_tokens)
+        self._sched = _SlotScheduler(cfg.max_batch)
         self._queue: List[_Request] = []
         self._next_rid = 0
+        self._cache = None                # wave: dense cache, reused
         self._alloc: Optional[kv_pages.PageAllocator] = None
         self._csched: Optional[kv_pages.ContinuousScheduler] = None
         self._pools = None                # (K, V) flat pools (L, P*S, KV, hd)
+        self._fixed: Dict[str, object] = {}   # resident non-paged leaves
         self._cur = None                  # (max_batch,) next-token register
         self._scratch: Dict[int, object] = {}   # admission prefill caches
+        self._prefix: Optional[PrefixCache] = None
+        self._gen = torch.Generator(device=self.device)
+        # Server mode: a callable polled at every chunk/wave boundary that
+        # yields (api.Request, RequestHandle) pairs submitted mid-drain.
+        self._ingest_hook: Optional[Callable] = None
         self._plen_buckets: set = set()
         self._lat_ttft: List[float] = []
         self._lat_tok: List[float] = []
         self._stats: Dict[str, float] = {
             "requests": 0, "tokens_generated": 0, "generate_calls": 0,
-            "chunks": 0, "admission_prefills": 0, "device_transfers": 0,
-            "cache_allocs": 0, "prefill_seconds": 0.0, "decode_seconds": 0.0,
+            "waves": 0, "chunks": 0, "admission_prefills": 0,
+            "device_transfers": 0, "cache_allocs": 0,
+            "prefill_seconds": 0.0, "decode_seconds": 0.0,
             "total_seconds": 0.0,
         }
 
-    # -- paged KV pool ----------------------------------------------------
+    # -- sampling -----------------------------------------------------------
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B, V) f32 logits -> (B,) int32 tokens: argmax, or Gumbel-max at
+        ``temperature > 0`` with noise from the engine's generator."""
+        t = self.cfg.temperature
+        if t <= 0.0:
+            return greedy(logits)
+        u = torch.rand(logits.shape, generator=self._gen,
+                       device=logits.device, dtype=torch.float32)
+        g = -torch.log(-torch.log(u.clamp_(min=_TINY)))
+        return torch.argmax(logits / t + g, dim=-1).to(torch.int32)
+
+    def _sync_if_profiling(self) -> None:
+        if self.cfg.profile and self.device.type == "cuda":
+            # deliberate sync: profile mode splits prefill / decode time
+            torch.cuda.synchronize(self.device)
+
+    # -- dense cache (wave) ---------------------------------------------------
+    def _ensure_cache(self):
+        """One dense ``init_cache(max_batch, max_len)`` per engine, reused by
+        every wave: prefill rewrites a wave's columns [0, plen) and decode
+        reads only [kv_start, offset]."""
+        if self._cache is None:
+            self._cache = self.model.init_cache(
+                self.cfg.max_batch, self.cfg.max_len, device=self.device)
+            self._stats["cache_allocs"] += 1
+        return self._cache
+
+    # -- paged KV pool (continuous) -------------------------------------------
     def _ensure_pool(self) -> None:
         """Allocate the paged pool once per engine: one flat token-axis
-        buffer per "self" KV leaf."""
+        buffer per "self" KV leaf (the dense family has no fixed leaves)."""
         if self._pools is not None:
             return
         self._alloc = kv_pages.PageAllocator(self._capacity_tokens,
@@ -163,6 +297,11 @@ class Engine:
                             for _ in range(2))
         self._cur = torch.zeros(self.cfg.max_batch, dtype=torch.int32,
                                 device=self.device)
+        if self.cfg.prefix_cache:
+            self._prefix = PrefixCache(self._alloc)
+            # under pool pressure the scheduler reclaims cache-pinned pages
+            # (LRU) before preempting live rows
+            self._csched.reclaim = self._prefix.reclaim
         self._stats["cache_allocs"] += 1
 
     def _scratch_cache(self, plen: int):
@@ -175,9 +314,23 @@ class Engine:
             self._scratch[plen] = cache
         return cache
 
-    # -- request queue ------------------------------------------------------
-    def submit(self, request: api.Request) -> api.RequestHandle:
-        """Queue one request; the handle resolves when it finishes."""
+    def _slice_fixed_row(self, slot: int) -> List[torch.Tensor]:
+        """Snapshot one slot's rows of every fixed cache leaf: the per-row
+        state a full prefix hit restores (empty for the dense family)."""
+        return [row.clone() for row in _fixed_rows(self._fixed, slot)]
+
+    def _restore_fixed_row(self, snap: List[torch.Tensor], slot: int) -> None:
+        """Write a :meth:`_slice_fixed_row` snapshot back into ``slot``."""
+        for row, saved in zip(_fixed_rows(self._fixed, slot), snap):
+            row.copy_(saved)
+
+    # -- request queue ----------------------------------------------------------
+    def submit(self, request: api.Request,
+               _handle: Optional[api.RequestHandle] = None
+               ) -> api.RequestHandle:
+        """Queue one request; the handle resolves when it finishes.
+        ``_handle`` is internal: a Server makes the handle on the caller's
+        thread before the worker ingests the request."""
         if not isinstance(request, api.Request):
             raise TypeError("submit takes a repro_torch.serve.api.Request")
         if (request.temperature is not None
@@ -190,32 +343,63 @@ class Engine:
         self._check(prompt, max_new)
         rid = self._next_rid
         self._next_rid += 1
-        handle = api.RequestHandle(rid)
+        handle = _handle if _handle is not None else api.RequestHandle()
+        handle.request_id = rid
         self._queue.append(_Request(rid, prompt, max_new, handle,
+                                    row=request.row, stream=request.stream,
                                     t_submit=time.perf_counter()))
         self._stats["requests"] += 1
         return handle
 
     def _check(self, prompt: List[int], max_new: int) -> None:
-        """Reject a request that could never be served, before it queues."""
+        """Reject a request that could never be served, before it queues.
+        The continuous scheduler's capacity is tokens in the paged pool; the
+        wave scheduler reserves a ``max_len``-column slot."""
         if not prompt:
             raise ValueError("empty prompt: each prompt needs >= 1 token")
         if max_new < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
-        if len(prompt) + max_new > self._capacity_tokens:
+        if self._scheduler == "continuous":
+            if len(prompt) + max_new > self._capacity_tokens:
+                raise ValueError(
+                    f"prompt ({len(prompt)}) + max_new ({max_new}) "
+                    f"exceeds capacity_tokens ({self._capacity_tokens})")
+        elif len(prompt) + max_new > self.cfg.max_len:
             raise ValueError(
-                f"prompt ({len(prompt)}) + max_new ({max_new}) "
-                f"exceeds capacity_tokens ({self._capacity_tokens})")
+                f"prompt ({len(prompt)}) + max_new ({max_new}) exceeds "
+                f"max_len ({self.cfg.max_len})")
 
     def run(self) -> List[api.GenerationResult]:
-        """Drain the queue; results in request-id order."""
-        drained = self._run_continuous()
+        """Drain the queue; results in request-id order.  Re-seeds the
+        sampling generator, so repeated runs give the same samples."""
+        self._gen.manual_seed(self.cfg.seed)
+        # no_grad is thread-local: entered here, it covers a Server's worker
+        with torch.no_grad():
+            if self._scheduler == "continuous":
+                drained = self._run_continuous()
+            else:
+                drained = []
+                while True:
+                    self._poll_ingest()
+                    if not self._queue:
+                        break
+                    wave = self._pack_wave()
+                    self._run_wave(wave)
+                    drained.extend(wave)
         return [r.result for r in sorted(drained, key=lambda r: r.rid)]
+
+    def _poll_ingest(self) -> None:
+        """Pull server-mode requests in at a scheduling boundary (no-op
+        without an ingest hook)."""
+        if self._ingest_hook is None:
+            return
+        for req, handle in self._ingest_hook():
+            self.submit(req, _handle=handle)
 
     def generate(self, prompts: List[List[int]],
                  max_new_tokens: int) -> List[List[int]]:
-        """Batched greedy generation; more prompts than slots are admitted
-        at chunk boundaries as slots free up."""
+        """Batched generation; more prompts than slots are admitted at chunk
+        boundaries (continuous) or served in successive waves."""
         if not prompts:
             raise ValueError("generate() needs at least one prompt")
         # the whole batch first: a bad prompt must not leave others queued
@@ -223,8 +407,9 @@ class Engine:
             self._check(list(p), max_new_tokens)
         t0 = time.perf_counter()
         handles = [self.submit(api.Request(prompt=list(p),
-                                           max_new_tokens=max_new_tokens))
-                   for p in prompts]
+                                           max_new_tokens=max_new_tokens,
+                                           row=i))
+                   for i, p in enumerate(prompts)]
         try:
             self.run()
         except Exception:
@@ -235,7 +420,19 @@ class Engine:
         self._stats["total_seconds"] += time.perf_counter() - t0
         return [h.result(timeout=0).tokens for h in handles]
 
+    def _emit(self, req: _Request, emitted: List[int], now: float) -> None:
+        """Append host-visible tokens to a request and stream them."""
+        base = len(req.tokens)
+        req.tokens.extend(emitted)
+        if emitted and req.t_first is None:
+            req.t_first = now
+        if req.stream is not None:
+            for j, t in enumerate(emitted):
+                req.stream(api.StreamEvent(req.rid, t, base + j))
+        self._stats["tokens_generated"] += len(emitted)
+
     def _finish_request(self, req: _Request, reason: str, now: float) -> None:
+        """Latency records, the terminal stream event, handle resolution."""
         total = max(now - req.t_submit, 1e-9)
         ttft = req.t_first - req.t_submit if req.t_first is not None else total
         n = len(req.tokens)
@@ -247,17 +444,134 @@ class Engine:
         req.result = api.GenerationResult(
             request_id=req.rid, tokens=list(req.tokens), finish_reason=reason,
             prompt_len=len(req.prompt), ttft_s=ttft, total_s=total,
-            tok_per_s=n / total)
+            tok_per_s=n / total, prefix_hit=req.prefix_hit,
+            cached_prefix_tokens=req.cached_prefix_tokens)
+        if req.stream is not None:
+            req.stream(api.StreamEvent(req.rid, None, n, finished=True,
+                                       finish_reason=reason))
         req.handle._set_result(req.result)
 
-    # -- continuous drain: admit/evict at chunk boundaries ------------------
+    def _finish_reason(self, emitted: List[int]) -> Optional[str]:
+        eos = self.cfg.eos_token
+        return api.FINISH_STOP if eos is not None and eos in emitted else None
+
+    # -- wave drain: one prefill + one fused decode + one transfer ------------
+    def _pack_wave(self) -> List[_Request]:
+        """Pop the next capacity-feasible wave off the queue (FIFO-biased):
+        the head always ships; later requests join while ``max(prompt) +
+        max(max_new)`` stays within ``max_len``, the rest keep their place."""
+        wave = [self._queue.pop(0)]
+        longest = len(wave[0].prompt)
+        need = wave[0].max_new
+        i = 0
+        while len(wave) < self.cfg.max_batch and i < len(self._queue):
+            r = self._queue[i]
+            nl = max(longest, len(r.prompt))
+            nn = max(need, r.max_new)
+            if nl + nn <= self.cfg.max_len:
+                wave.append(self._queue.pop(i))
+                longest, need = nl, nn
+            else:
+                i += 1
+        return wave
+
+    def _run_wave(self, wave: List[_Request]) -> None:
+        cfg = self.cfg
+        need = max(r.max_new for r in wave)    # real token budget (cache need)
+        longest = max(len(r.prompt) for r in wave)
+        if longest + need > cfg.max_len:       # submit()/_pack_wave guarantee
+            raise ValueError(                  # this; keep the guard for raw
+                f"prompt ({longest}) + max_new ({need}) exceeds "   # callers
+                f"max_len ({cfg.max_len})")
+        # The decode width is a buffer bound, bucketed unclamped.  The
+        # prompt pad is capacity-bound: bucketed, clamped to leave the width
+        # bucket, else the exact need, else the prompt itself.
+        width = _bucket_len(need)
+        plen = _bucket_len(longest, cfg.max_len - width)
+        if plen < longest:
+            plen = _bucket_len(longest, cfg.max_len - need)
+        if plen < longest:     # unreachable: longest + need <= max_len
+            plen = longest
+        for r in wave:
+            self._sched.admit(r)
+        try:
+            self._decode_wave(wave, plen, width, need)
+        except Exception as exc:
+            for r in wave:
+                if not r.handle.done:
+                    r.handle._set_error(exc)
+            raise
+        finally:
+            # free slots even when prefill/decode throws
+            for r in wave:
+                self._sched.evict(r)
+
+    def _decode_wave(self, wave: List[_Request], plen: int, width: int,
+                     need: int) -> None:
+        b = self.cfg.max_batch
+        # host inputs packed into one array: tokens (b, plen) | kv_start | budget
+        packed = np.zeros((b, plen + 2), np.int32)
+        packed[:, plen] = plen                 # empty slots: fully padded
+        for r in wave:
+            n = len(r.prompt)
+            packed[r.slot, plen - n:plen] = r.prompt
+            packed[r.slot, plen] = plen - n
+            packed[r.slot, plen + 1] = r.max_new
+        dev = torch.from_numpy(packed).to(self.device)
+        kv_start, budget = dev[:, plen], dev[:, plen + 1]
+        cache = self._ensure_cache()
+        self._plen_buckets.add(plen)
+        t0 = time.perf_counter()
+        logits0, cache = self.model.prefill(
+            self.params, {"tokens": dev[:, :plen], "kv_start": kv_start}, cache)
+        self._sync_if_profiling()
+        t1 = time.perf_counter()
+        cur = self._sample(logits0)
+        done = budget <= 0                     # empty slots start finished
+        buf = torch.zeros((b, width), dtype=torch.int32, device=self.device)
+        lens = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        eos = self.cfg.eos_token
+        offset = plen
+        # Every row is done after ``need`` steps, where the reference's loop
+        # stops at the latest; the advance after the last step is skipped,
+        # as there.  Earlier steps run with finished rows masked.
+        for step in range(need):
+            buf[:, step] = torch.where(done, 0, cur)
+            lens += (~done).to(torch.int32)
+            if eos is not None:
+                done = done | (cur == eos)
+            done = done | (lens >= budget)
+            if step + 1 < need:
+                logits, cache = self.model.decode_step(
+                    self.params, cur[:, None], cache, offset, kv_start)
+                cur = self._sample(logits)
+                offset += 1
+        # The ONE device-to-host transfer of this wave.
+        host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
+        t2 = time.perf_counter()
+        self._stats["device_transfers"] += 1
+        self._stats["waves"] += 1
+        self._stats["prefill_seconds"] += t1 - t0
+        self._stats["decode_seconds"] += t2 - t1
+        now = time.perf_counter()
+        for r in wave:
+            n = int(host[r.slot, width])
+            r.tokens = []
+            # every token of a wave becomes host-visible at its transfer
+            self._emit(r, [int(t) for t in host[r.slot, :n]], now)
+            self._finish_request(r, self._finish_reason(r.tokens)
+                                 or api.FINISH_LENGTH, now)
+
+    # -- continuous drain: admit/evict at chunk boundaries ----------------------
     def _run_continuous(self) -> List[_Request]:
         self._ensure_pool()
         finished: List[_Request] = []
         active: Dict[int, _Request] = {}        # slot -> request
-        eos = self.cfg.eos_token
         try:
-            while self._queue or active:
+            while True:
+                self._poll_ingest()
+                if not (self._queue or active):
+                    break
                 if self._queue:
                     self._admit_batch(active)
                 preempted = self._csched.ensure_chunk_pages(self._chunk)
@@ -267,8 +581,11 @@ class Engine:
                 for row in sorted(preempted, key=lambda r: r.rid,
                                   reverse=True):
                     req = active.pop(row.slot)
+                    self._sched.evict(req)
                     req.tokens = None
                     req.t_first = None
+                    req.prefix_hit = None
+                    req.cached_prefix_tokens = 0
                     self._queue.insert(0, req)
                 if not active:
                     continue        # preemption freed the pool; re-admit
@@ -279,28 +596,26 @@ class Engine:
                     row = self._csched.rows[slot]
                     n = int(lens_h[slot])
                     emitted = [int(t) for t in buf_h[slot, :n]]
-                    req.tokens.extend(emitted)
-                    if emitted and req.t_first is None:
-                        req.t_first = now
-                    self._stats["tokens_generated"] += n
+                    self._emit(req, emitted, now)
                     row.length += n
                     row.budget_left -= n
-                    stop = eos is not None and eos in emitted
+                    stop = self._finish_reason(emitted)
                     if row.budget_left <= 0 or stop:
                         self._csched.evict(row)
+                        self._sched.evict(req)
                         del active[slot]
-                        self._finish_request(
-                            req, api.FINISH_STOP if stop else api.FINISH_LENGTH,
-                            now)
+                        self._finish_request(req, stop or api.FINISH_LENGTH,
+                                             now)
                         finished.append(req)
         except Exception as exc:
-            # Free every live row so one bad request can't brick the pool;
-            # fail their handles so waiters aren't stranded.
+            # Free every live row (pages and slots) so one bad request can't
+            # brick the pool; fail their handles so waiters aren't stranded.
             for slot in list(active):
                 req = active.pop(slot)
                 row = self._csched.rows.get(slot)
                 if row is not None:
                     self._csched.evict(row)
+                self._sched.evict(req)
                 if not req.handle.done:
                     req.handle._set_error(exc)
             raise
@@ -308,24 +623,52 @@ class Engine:
 
     def _admit_batch(self, active: Dict[int, _Request]) -> None:
         """Admit every queue-head request that fits (slot + prompt pages),
-        prefill them in ONE batched ragged call over all ``max_batch`` rows,
-        scatter their prompt KV to their pages and put each first token in
-        ``cur``.  Rows not admitted this call are fully masked
-        (``kv_start = plen``), write to the TRASH page, and keep their
-        ``cur``: only the admitted slots are updated (the reference pads its
-        slot map with an out-of-range index that JAX drops; here the host
-        list of admitted slots is the mask)."""
+        consult the prefix cache for each, restore full hits without
+        prefill, and prefill the rest in ONE batched ragged call over all
+        ``max_batch`` rows: their prompt KV goes to their pages and their
+        first tokens into ``cur``.  Rows not admitted this call are fully
+        masked (``kv_start = plen``), write to the TRASH page, and keep
+        their ``cur``: only the admitted slots are updated.
+
+        Prefix-cache composition (host bookkeeping): the head's cached pages
+        count as shared for the capacity check; when the head still does
+        not fit for want of pages, the cache evicts LRU entries first (a
+        busy slot frees itself at the next boundary, so it evicts nothing);
+        partial hits re-run prefill with the shared columns' writes sent to
+        TRASH; every prefilled prompt is inserted while its pages are live.
+        """
         admitted: List[_Request] = []
+        hits = []                       # (req, RowState, cache entry)
+        caching = self._prefix is not None
         while self._queue:
             nxt = self._queue[0]
-            if not self._csched.can_admit(len(nxt.prompt)):
+            m = self._prefix.match(nxt.prompt) if caching else None
+            shared = list(m.pages) if m is not None else []
+            if not self._csched.can_admit(len(nxt.prompt),
+                                          shared_pages=len(shared)):
+                if (self._csched.free_slots > 0 and caching
+                        and self._prefix.evict_one()):
+                    continue
                 break
             req = self._queue.pop(0)
-            row = self._csched.admit(req.rid, len(req.prompt), req.max_new)
-            req.slot = row.slot
+            row = self._csched.admit(req.rid, len(req.prompt), req.max_new,
+                                     shared_pages=shared)
+            self._sched.admit(req)      # lockstep: same smallest free slot
+            assert req.slot == row.slot
             req.tokens = []
             active[row.slot] = req
-            admitted.append(req)
+            if caching:
+                self._prefix.record_admit(m, len(req.prompt))
+            if m is not None:
+                req.prefix_hit = (api.PREFIX_HIT_FULL if m.full
+                                  else api.PREFIX_HIT_PARTIAL)
+                req.cached_prefix_tokens = m.tokens
+            if m is not None and m.full:
+                hits.append((req, row, m.entry))
+            else:
+                admitted.append(req)
+        if hits:
+            self._restore_hits(hits)
         if not admitted:
             return
         b = self.cfg.max_batch
@@ -341,10 +684,14 @@ class Engine:
             n = len(r.prompt)
             packed[r.slot, plen - n:plen] = r.prompt
             packed[r.slot, plen] = plen - n
-            logical = np.arange(n)
+            # columns a partial hit shares stay with TRASH: their pages are
+            # the cache's, and already hold what this prefill would write
+            shared_toks = (r.cached_prefix_tokens
+                           if r.prefix_hit == api.PREFIX_HIT_PARTIAL else 0)
+            logical = np.arange(shared_toks, n)
             pages = np.asarray(self._csched.rows[r.slot].pages, np.int64)
-            dest[r.slot, plen - n:] = pages[logical // page] * page \
-                + logical % page
+            dest[r.slot, plen - n + shared_toks:] = (
+                pages[logical // page] * page + logical % page)
         dev = torch.from_numpy(packed).to(self.device)
         batch = {"tokens": dev[:, :plen], "kv_start": dev[:, plen]}
         scratch = self._scratch_cache(plen)
@@ -356,12 +703,39 @@ class Engine:
             paged_scatter(pool, dest_t, src)
         slots = torch.tensor([r.slot for r in admitted], dtype=torch.long,
                              device=self.device)
-        self._cur[slots] = greedy(logits0)[slots]
-        if self.cfg.profile and self.device.type == "cuda":
-            # deliberate sync: profile mode splits prefill / decode time
-            torch.cuda.synchronize(self.device)
+        self._cur[slots] = self._sample(logits0)[slots]
+        self._sync_if_profiling()
         self._stats["prefill_seconds"] += time.perf_counter() - t0
         self._stats["admission_prefills"] += 1
+        if caching:
+            # Insert while the rows' pages are known-live: the cache takes
+            # its own refs.  The logits row is cloned: a view would keep the
+            # whole batch's (B, vocab) logits alive per entry.
+            for r in admitted:
+                self._prefix.insert(r.prompt, self._csched.rows[r.slot].pages,
+                                    logits0[r.slot].clone(),
+                                    self._slice_fixed_row(r.slot))
+
+    def _restore_hits(self, hits) -> None:
+        """Admit full-prompt prefix hits without prefill: the row's block
+        table already points at the shared pages; copy the straddling page
+        (COW), restore the fixed-leaf snapshot, and sample the first token
+        from the cached last-position logits (bit-identical under greedy:
+        the argmax runs over the exact array the cold path sampled from)."""
+        t0 = time.perf_counter()
+        page = self._page_size
+        b = self.cfg.max_batch
+        for req, row, entry in hits:
+            if entry.tail_page is not None:
+                dst = row.pages[len(req.prompt) // page]
+                for pool in self._pools:
+                    paged_copy(pool, entry.tail_page, dst, page)
+            if self._fixed:
+                self._restore_fixed_row(entry.fixed, row.slot)
+            # noise for all max_batch rows, this row's taken
+            first = self._sample(entry.logits0[None, :].expand(b, -1))
+            self._cur[row.slot] = first[row.slot]
+        self._stats["prefill_seconds"] += time.perf_counter() - t0
 
     def _run_chunk(self):
         """One decode chunk over every live row.  Returns host copies of the
@@ -401,9 +775,10 @@ class Engine:
             done = done | (lens >= budget)
             # Always advance (see the module docstring): while any row is
             # live this is the reference's step; after, it is masked work.
+            # The chunk's last advance is the next chunk's first token.
             logits, cache = self.model.decode_step(self.params, cur[:, None],
                                                    cache, offset, kv_start)
-            cur = greedy(logits)
+            cur = self._sample(logits)
             offset += 1
         sidx_t = torch.from_numpy(sidx)
         for pool, leaf in zip(self._pools, cache["self"]):
@@ -416,38 +791,56 @@ class Engine:
         self._stats["chunks"] += 1
         return host[:, :chunk], host[:, chunk]
 
-    # -- telemetry -----------------------------------------------------------
+    # -- prefix-cache control ---------------------------------------------------
+    def clear_prefix_cache(self) -> None:
+        """Release every cache-pinned page (cold-cache reset).  Live rows
+        keep their refs."""
+        if self._prefix is not None:
+            self._prefix.clear()
+
+    # -- telemetry ----------------------------------------------------------------
     def stats(self) -> Dict[str, object]:
-        """Counters, paged-pool state, latency percentiles and the kernels'
-        launch counts (process-wide, as ``repro_torch.kernels`` keeps them)."""
+        """Counters, scheduler and paged-pool state, prefix-cache counters,
+        latency percentiles and the kernels' launch counts (process-wide, as
+        ``repro_torch.kernels`` keeps them).  The key set is versioned in
+        :mod:`repro_torch.serve.stats_schema`."""
         out: Dict[str, object] = dict(self._stats)
+        out["schema_version"] = SCHEMA_VERSION
+        out["hardware"] = self.hardware
         out["device"] = str(self.device)
-        out["scheduler"] = "continuous"
-        out["decode_chunk"] = self._chunk
-        out["capacity_tokens"] = self._capacity_tokens
-        out["page_size"] = self._page_size
         out["prefill_plen_buckets"] = sorted(self._plen_buckets)
-        out["pages"] = None
-        if self._alloc is not None:
-            out["pages"] = {
-                "page_size": self._alloc.page_size,
-                "usable_pages": self._alloc.usable_pages,
-                "used_pages": self._alloc.used_pages,
-                "free_pages": self._alloc.free_pages,
-                "utilization": self._alloc.utilization(),
-                "high_water_pages": self._alloc.high_water_pages,
-                "alloc_count": self._alloc.alloc_count,
-                "free_count": self._alloc.free_count,
-            }
-        sched = self._csched
-        out["admissions"] = sched.admissions if sched else 0
-        out["evictions"] = sched.evictions if sched else 0
-        out["preemptions"] = sched.preemptions if sched else 0
+        out["scheduler"] = self._scheduler
+        out["scheduler_forced"] = self._scheduler_forced
+        if self._scheduler == "continuous":
+            out["decode_chunk"] = self._chunk
+            out["capacity_tokens"] = self._capacity_tokens
+            out["page_size"] = self._page_size
+            out["pages"] = None
+            if self._alloc is not None:
+                out["pages"] = {
+                    "page_size": self._alloc.page_size,
+                    "usable_pages": self._alloc.usable_pages,
+                    "used_pages": self._alloc.used_pages,
+                    "free_pages": self._alloc.free_pages,
+                    "utilization": self._alloc.utilization(),
+                    "high_water_pages": self._alloc.high_water_pages,
+                    "alloc_count": self._alloc.alloc_count,
+                    "free_count": self._alloc.free_count,
+                }
+            sched = self._csched
+            out["admissions"] = sched.admissions if sched else 0
+            out["evictions"] = sched.evictions if sched else 0
+            out["preemptions"] = sched.preemptions if sched else 0
+        out["prefix_cache"] = (self._prefix.stats() if self._prefix is not None
+                               else PrefixCache.disabled_stats())
         out["latency"] = {
             "count": len(self._lat_tok),
             "ttft_s": _percentiles(self._lat_ttft),
             "tok_per_s": _percentiles(self._lat_tok),
         }
         out["slots"] = self.cfg.max_batch
+        out["slots_admitted"] = self._sched.admitted
+        out["slots_evicted"] = self._sched.evicted
+        out["slot_reuses"] = self._sched.reuses
         out["kernel_launches"] = kernels.launch_counts()
         return out

@@ -23,8 +23,9 @@ contract (the JAX package's ``tests/test_kv_pages.py`` pins it there;
 * **capacity is never exceeded** — admission + lazy decode growth never
   allocate past the pool.
 
-Pages are **refcounted** so a prefix cache can pin prefilled prompt pages
-while live rows share them read-only: ``alloc`` hands a page out at refcount 1, ``ref`` adds holders,
+Pages are **refcounted** so the prefix cache (:mod:`repro_torch.serve
+.prefix_cache`) can pin prefilled prompt pages while live rows share them
+read-only: ``alloc`` hands a page out at refcount 1, ``ref`` adds holders,
 and ``free`` drops one holder — the page returns to the free list only when
 the last holder lets go.  Under pool pressure the scheduler asks the cache
 to give pages back first (the ``reclaim`` hook) and preempts live rows only

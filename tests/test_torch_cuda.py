@@ -338,3 +338,87 @@ def test_cuda_engine_bf16_prefill_attention_goes_through_wgmma(cuda):
     eng.generate(prompts, 4)
     flash = kernels.flash_launches_by_path()
     assert flash["wgmma"] > 0 and flash["fma"] == 0, flash
+
+
+def _reduced_on_both(cuda, **model_kw):
+    """Reduced llama in float32 with the same weights on the CPU and on the
+    card: (model, cpu params, card params)."""
+    import dataclasses
+
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              attention_impl="flash", **model_kw)
+    model = build_model(cfg)
+    cpu = model.init(1, device="cpu")
+
+    def move(tree):
+        if isinstance(tree, dict):
+            return {k: move(v) for k, v in tree.items()}
+        return tree.to(cuda)
+    return model, cpu, move(cpu)
+
+
+PREFIX = [(i * 11 + 5) % 256 for i in range(20)]
+SERVE_FEATURES = {
+    "wave": (dict(), dict(scheduler="wave")),
+    "prefix_cache": (dict(), dict(page_size=4)),
+    "int8_kv": (dict(kv_quant=True), dict()),
+}
+
+
+@pytest.mark.parametrize("feature", sorted(SERVE_FEATURES))
+def test_cuda_serve_features_match_cpu(cuda, feature):
+    """The wave, prefix-cache and int8 engines on the card give the tokens
+    the same engine gives on the CPU (float32, the same weights); the
+    prefix-cache engine serves its traffic twice, cold and warm."""
+    from repro_torch.serve import Engine, ServeConfig
+
+    model_kw, serve_kw = SERVE_FEATURES[feature]
+    model, cpu, card = _reduced_on_both(cuda, **model_kw)
+    prompts = [[5, 9, 2, 7], PREFIX + [3, 1, 4], PREFIX + [1, 5],
+               PREFIX + [3, 1, 4], [(i * 7 + 3) % 256 for i in range(37)]]
+    outs = []
+    for params, dev in ((cpu, "cpu"), (card, None)):
+        eng = Engine(model, params, ServeConfig(max_batch=2, max_len=128,
+                                                device=dev, **serve_kw))
+        outs.append([eng.generate(prompts, 6), eng.generate(prompts, 6)])
+        st = eng.stats()
+        assert st["device_transfers"] == st["chunks"] + st["waves"]
+    assert outs[1] == outs[0]
+    if feature == "prefix_cache":
+        pc = st["prefix_cache"]
+        assert pc["hits_full"] > 0 and pc["hits_partial"] > 0, pc
+    if feature == "int8_kv":
+        assert st["scheduler"] == "wave" and st["scheduler_forced"]
+
+
+def test_cuda_wave_bf16_goes_through_decode_and_wgmma(cuda):
+    """A bf16 wave serve (head dim 64, GQA group 4): every GEMM runs the
+    decode or the wgmma kernel, every prefill attention the wgmma flash
+    kernel, and one host transfer per wave."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              attention_impl="flash", dtype="bfloat16",
+                              head_dim=64, num_heads=8, num_kv_heads=2)
+    model = build_model(cfg)
+    params = model.init(1, device=cuda)
+    prompts = [[(i * 7 + 3) % 256 for i in range(n)] for n in (37, 5, 64)]
+    eng = Engine(model, params, ServeConfig(max_batch=2, max_len=128,
+                                            scheduler="wave"))
+    kernels.reset_launch_counts()
+    eng.generate(prompts, 4)
+    paths = kernels.gemm_launches_by_path()
+    flash = kernels.flash_launches_by_path()
+    assert paths["decode"] > 0 and paths["wgmma"] > 0, paths
+    assert paths["wmma"] == 0 and paths["fma"] == 0, paths
+    assert flash["wgmma"] > 0 and flash["fma"] == 0, flash
+    st = eng.stats()
+    assert st["waves"] == 2 and st["device_transfers"] == 2

@@ -94,7 +94,11 @@ def test_more_requests_than_slots_admit_at_chunk_boundaries(
         assert res.finish_reason == "length" and res.prompt_len == len(p)
     st = eng.stats()
     assert st["admission_prefills"] > 1 and st["admissions"] == 6
-    assert st["evictions"] == 6 and st["pages"]["used_pages"] == 0
+    # the prefix cache (on by default) keeps the prompts' pages pinned
+    assert st["evictions"] == 6
+    assert st["pages"]["used_pages"] == st["prefix_cache"]["pinned_pages"]
+    eng.clear_prefix_cache()
+    assert eng.stats()["pages"]["used_pages"] == 0
 
 
 def test_one_device_transfer_per_chunk(jax_params):
@@ -135,10 +139,16 @@ def test_eos_stops_a_row(jax_params, oracle):
 
 
 def test_engine_rejects_what_is_not_ported(jax_params):
+    """Sampling, the prefix cache, the wave scheduler and the int8 cache are
+    ported; a non-dense family is not, by the factory or by the Engine."""
+    from repro_torch.models.model import Model
     model, params, _ = _port("chunked", jax_params)
-    for kw in (dict(temperature=0.7), dict(prefix_cache=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(model, params, ServeConfig(device="cpu", **kw))
+    moe = PORT_ARCHS["olmoe-1b-7b"].reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(moe)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(Model(cfg=moe, template=model.template), params,
+               ServeConfig(device="cpu"))
     eng = Engine(model, params, ServeConfig(max_len=16, device="cpu"))
     for bad in (Request(prompt=[], max_new_tokens=2),
                 Request(prompt=[1], max_new_tokens=0),
