@@ -22,7 +22,12 @@ Phases, each printing one JSON line:
    and f32 edges, and two long prompts (4096 tokens causal, 4 x 1024
    ragged) that are not on the serve path; each flash launch runs twice
    and must give the same bits.  Each row names the path (kernel) it took
-   and its share of bound.
+   and its share of bound.  The olmoe-1b-7b serve path's shapes run too
+   (MHA q/k/v/o 2048 x 2048, the router at N = 64, the untied unembed at
+   N = 50304, at M = 8 and 8 x 256; flash at (8, 256, 16, 16, 128)), and
+   llama-3.2-vision-11b's (d = 4096: q/o, k/v, MLP 14336 at M = 8 and
+   8 x 256, the unembed at N = 128256, the cross K/V projection at M =
+   8 x 1601; flash at (8, 256, 32, 8, 128)).
 4. ``serve``   — full-width llama3.2-1b in bf16 with seeded random weights,
    flash prefill: 12 requests through ``Engine`` over 8 slots; the kernels'
    launch counts by path are set to 0 just before and read just after:
@@ -46,6 +51,27 @@ Phases, each printing one JSON line:
    stream callbacks, 4 requests more submitted while it drains; (f) float32
    exactness of the wave, prefix-cache (cold and warm) and int8 engines
    against the per-prompt oracle (2 layers).
+6. ``serve_moe`` — the llama weights freed first; full-width olmoe-1b-7b
+   (16 layers, 64 experts, top-8, MHA at head dim 128) in bf16 with seeded
+   random weights, flash prefill: the serve phase's 12 requests
+   continuous, then wave, then the prefix-cache traffic of b cold and warm,
+   each run twice on fresh engines with the launch counts set to 0 before
+   each run (every GEMM on decode or wgmma, every prefill attention on the
+   wgmma flash kernel, one host transfer per chunk or wave, equal tokens
+   on repeat); finite logits of one batched prefill; the real-token slots
+   the first MoE layer drops in it at capacity factor 1.25 (from the
+   port's routing); the expert einsums' device time at the decode and
+   prefill slots; and a float32 pass (full width, 2 layers, capacity factor
+   8.0, where no slot can drop) whose continuous and wave tokens must equal
+   the per-prompt oracle's.
+7. ``serve_vlm`` — the olmoe weights freed first; full-width
+   llama-3.2-vision-11b (8 units of 4 self layers and one cross-attention
+   layer over 1601 image tokens) in bf16 with seeded random weights and
+   seeded random image embeddings (one per request, ``extra_inputs``):
+   the same three traffics and checks as serve_moe (the prefix cache is
+   not consulted with extra inputs: no hit), finite logits of one batched
+   prefill, and a float32 pass at full width and one unit (5 layers)
+   whose tokens must equal the per-prompt oracle's.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -169,6 +195,30 @@ def gemm_cases(torch):
                           False, True))
     cases.append(("unembed (tied, B=emb.T, f32 out)", 8, d, vocab, bf, True,
                   None, f32, False, True))
+    # olmoe-1b-7b (serve_moe): MHA projections, the router (N = E = 64, bf16
+    # out) and the untied unembed (N = 50304; serving unembeds M = 8 rows,
+    # M = 8 x 256 is a scoring forward's)
+    for m, phase in ((8, "decode"), (8 * 256, "prefill")):
+        for name, n in (("q/k/v/o", d), ("router", 64)):
+            cases.append((f"olmoe {phase} {name}", m, d, n, bf, False, None,
+                          bf, False, True))
+        cases.append((f"olmoe {phase} unembed (f32 out)", m, d, 50304, bf,
+                      False, None, f32, False, m == 8))
+    # llama-3.2-vision-11b (serve_vlm): d = 4096, GQA 32 / 8 at d = 128, MLP
+    # 14336, the untied unembed (N = 128256) and the cross K / V projection
+    # of 8 rows of 1601 image tokens
+    dv, kvv, ffv = 4096, 1024, 14336
+    vproj = [("q/o", dv, dv, None), ("k/v", dv, kvv, None),
+             ("gate+silu", dv, ffv, "silu"), ("up", dv, ffv, None),
+             ("down", ffv, dv, None)]
+    for m, phase in ((8, "decode"), (8 * 256, "prefill")):
+        for name, k, n, act in vproj:
+            cases.append((f"vlm {phase} {name}", m, k, n, bf, False, act, bf,
+                          False, True))
+    cases.append(("vlm unembed (f32 out)", 8, dv, 128256, bf, False, None,
+                  f32, False, True))
+    cases.append(("vlm prefill cross k/v (8 x 1601 image tokens)", 8 * 1601,
+                  dv, kvv, bf, False, None, bf, False, True))
     for (name, k, n) in (("k/v", d, kvd), ("down", ff, d)):
         for m in (1, 3, 8, 16):
             cases.append((f"decode edge {name} M={m} silu", m, k, n, bf,
@@ -254,8 +304,17 @@ def run_gemm_case(torch, timers, case, gen):
         "library": "torch.matmul",
         "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / kernel_ms,
         "share_of_bound_device": b_ms / kernel_device_ms,
-        "main_path": main,
+        "main_path": main, "model": model_of(label),
     }
+
+
+def model_of(label: str) -> str:
+    """The model whose serve path gives a kernels-phase case its shape."""
+    for prefix, model in (("olmoe", "olmoe-1b-7b"),
+                          ("vlm", "llama-3.2-vision-11b")):
+        if label.startswith(prefix):
+            return model
+    return "llama3.2-1b"
 
 
 def decode_batch_invariance(torch, gen):
@@ -284,13 +343,17 @@ def decode_batch_invariance(torch, gen):
 
 def flash_cases():
     """(label, B, S, Skv, H, KV, d, dtype, kv_start, main_path).  The main
-    path's prefill shape first; the two long prompts are not on the serve
-    path (its prompts are at most 300 tokens), so the kernels line's sums
-    stay comparable with earlier runs."""
+    paths' prefill shapes first (llama3.2-1b; olmoe-1b-7b: MHA, group 1,
+    d = 128; llama-3.2-vision-11b: group 4, d = 128); the two long prompts are not on a serve path (its prompts
+    are at most 300 tokens)."""
     ragged = [0, 17, 100, 255, 256, 3, 64, 200]     # 256: fully masked row
     return [
         ("prefill (8,256,32,64) ragged + fully masked row", 8, 256, 256, 32, 8,
          64, "bfloat16", ragged, True),
+        ("olmoe prefill (8,256,16,16,128) ragged + fully masked row", 8, 256,
+         256, 16, 16, 128, "bfloat16", ragged, True),
+        ("vlm prefill (8,256,32,8,128) ragged + fully masked row", 8, 256,
+         256, 32, 8, 128, "bfloat16", ragged, True),
         ("non-divisible S=200 + fully masked row", 8, 200, 200, 32, 8, 64,
          "bfloat16", [0, 5, 199, 200, 1, 63, 64, 150], False),
         ("causal S=100 < Skv=256", 2, 100, 256, 32, 8, 64, "bfloat16", [0, 40],
@@ -387,7 +450,7 @@ def run_flash_case(torch, timers, case, gen):
         "library": "F.scaled_dot_product_attention",
         "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / kernel_ms,
         "share_of_bound_device": b_ms / kernel_device_ms,
-        "main_path": main,
+        "main_path": main, "model": model_of(label),
     }
 
 
@@ -547,10 +610,13 @@ def prefix_traffic(rng, vocab: int, prefix, repeat_of):
     return fresh + [list(p) for p in (repeat_of or fresh)[:4]]
 
 
-def drain(eng, Request, prompts, max_new):
-    handles = [eng.submit(Request(prompt=p, max_new_tokens=max_new))
-               for p in prompts]
-    eng.run()
+def drain(eng, Request, prompts, max_new, extra=None):
+    """Submit ``prompts`` and run the engine; with ``extra`` inputs,
+    request ``i`` takes their row ``i``."""
+    handles = [eng.submit(Request(prompt=p, max_new_tokens=max_new,
+                                  row=i if extra else None))
+               for i, p in enumerate(prompts)]
+    eng.run(extra)
     return [h.result(timeout=0) for h in handles]
 
 
@@ -757,6 +823,322 @@ def phase_serve_features(torch, ctx):
 
 
 # ---------------------------------------------------------------------------
+# phase: serve_moe
+# ---------------------------------------------------------------------------
+
+def ragged_batch(torch, prompts):
+    """The engine's prefill layout of ``prompts``: right-aligned tokens and
+    per-row ``kv_start``, on the card."""
+    import numpy as np
+
+    from repro_torch.serve.engine import _bucket_len
+    plen = _bucket_len(max(len(p) for p in prompts))
+    toks = np.zeros((len(prompts), plen), np.int32)
+    ks = np.zeros(len(prompts), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+        ks[i] = plen - len(p)
+    return {"tokens": torch.from_numpy(toks).cuda(),
+            "kv_start": torch.from_numpy(ks).cuda()}
+
+
+def first_layer_drops(torch, model, params, batch):
+    """Slots the first MoE layer drops in one batched ragged prefill,
+    computed with the port's own routing (``moe._route_group``) on the
+    layer's real input: (real-token slots dropped, real-token slots, pad
+    slots dropped, capacity)."""
+    from repro_torch.core import matmul
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    tokens, kv_start = batch["tokens"], batch["kv_start"]
+    plen = tokens.shape[1]
+    with torch.no_grad():
+        x = T._embed(cfg, params, tokens)
+        bp = T._layer(params["blocks"], 0)
+        h, _ = L.attention(
+            bp["attn"], L.apply_norm(bp["ln1"], x, eps=cfg.norm_eps),
+            T.attn_dims(cfg), positions=T._ragged_positions(plen, kv_start),
+            rope_theta=cfg.rope_theta, attn_impl=cfg.attention_impl,
+            kv_start=kv_start)
+        y_in = L.apply_norm(bp["ln2"], x + h, eps=cfg.norm_eps)
+        cap = M.capacity(plen, cfg.num_experts, cfg.experts_per_token,
+                         cfg.moe_capacity_factor)
+        _, (_, _, keep, _) = M._route_group(
+            y_in, matmul(y_in, bp["moe"]["router"]),
+            top_k=cfg.experts_per_token, num_experts=cfg.num_experts, cap=cap)
+    real = (torch.arange(plen, device="cuda")[None, :] >= kv_start[:, None]
+            ).repeat_interleave(cfg.experts_per_token, dim=1)
+    return (int((~keep & real).sum()), int(real.sum()),
+            int((~keep & ~real).sum()), cap)
+
+
+def expert_einsum_case(torch, timers, model, params, b, cap, label):
+    """Device time of one layer's three expert einsums at (E, B, C) slots,
+    as ``moe_layer`` calls them (bf16 operands, f32 results through
+    ``torch.bmm(..., out_dtype=float32)``), against the bytes bound (each
+    weight stack read once) and the upcast form the port used before (f32
+    copies of every operand, ``torch.einsum``)."""
+    from repro_torch.core import einsum
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    w = T._layer(params["blocks"], 0)["moe"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    buf = torch.randn(e, b, cap, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    hid = torch.randn(e, b, cap, f, generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def run(fn):
+        return lambda: (fn("ebcd,edf->ebcf", buf, w["w_gate"]),
+                        fn("ebcd,edf->ebcf", buf, w["w_up"]),
+                        fn("ebcf,efd->ebcd", hid, w["w_down"]))
+    got = run(einsum)()
+    upcast = run(lambda sub, *ops: torch.einsum(
+        sub, *(o.float() for o in ops)))
+    want = upcast()
+    torch.cuda.synchronize()
+    assert all(g.dtype == torch.float32 for g in got)
+    err = max((g - r).abs().max().item() for g, r in zip(got, want))
+    slots = e * b * cap
+    nbytes = 3 * e * d * f * 2 + slots * (d + f) * 2 + slots * (2 * f + d) * 4
+    b_ms, b_by = bound(3 * 2.0 * slots * d * f, nbytes, "bfloat16")
+    timer, device_timer = timers
+    ms = device_timer(run(einsum))
+    return {"case": label, "slots": [e, b, cap], "max_abs_err_vs_upcast": err,
+            "device_ms": ms, "ms": timer(run(einsum)),
+            "upcast_device_ms": device_timer(upcast), "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound_device": b_ms / ms}
+
+
+def free_card(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_phase_setup(torch, ctx, arch):
+    """Free what the earlier phases left on the card, then build ``arch`` at
+    full width in bf16 (flash prefill) with seeded random weights; the
+    serve phase's 12 prompts and serve_features b's prefix traffic at its
+    vocabulary.  Returns (out line, cfg, model, params, prompts, cold, warm,
+    numpy generator)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+
+    ctx.clear()
+    free_card(torch)
+    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
+                              attention_impl="flash")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = {"card": torch.cuda.get_device_name(0), "model": cfg.name,
+           "dtype": cfg.dtype, "params": model.param_count(),
+           "init_seconds": time.perf_counter() - t0,
+           "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(0)
+    lens = rng.integers(5, 301, size=12)
+    prompts = [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
+    prng = np.random.default_rng(1)
+    prefix = prng.integers(0, vocab, size=256).tolist()
+    cold = prefix_traffic(prng, vocab, prefix, None)
+    warm = prefix_traffic(prng, vocab, prefix, cold)
+    return out, cfg, model, params, prompts, cold, warm, rng
+
+
+def serve_runs(torch, out, model, params, prompts, cold, warm, extra=None):
+    """Continuous, wave, then continuous with the prefix-cache traffic (cold
+    then warm on one engine), each run twice on fresh engines with the
+    launch counts set to 0 before each run: every GEMM on decode or wgmma,
+    every prefill attention on the wgmma flash kernel, one host transfer
+    per chunk or wave, 32 in-vocabulary tokens a request, equal tokens on
+    repeat.  ``extra``: each drain's ``extra_inputs`` (row i for request
+    i), with which the prefix cache is not consulted (no hit)."""
+    from repro_torch import kernels
+    from repro_torch.serve import Engine, Request, ServeConfig
+    vocab = model.cfg.vocab_size
+
+    def generate(eng):
+        return (eng.generate(prompts, 32, extra_inputs=extra),
+                sum(len(p) for p in prompts))
+
+    def prefix_cache(eng):
+        got = [r.tokens for traffic in (cold, warm)
+               for r in drain(eng, Request, traffic, 32, extra)]
+        return got, sum(len(p) for p in cold + warm)
+
+    runs = (("continuous", generate, {}),
+            ("wave", generate, {"scheduler": "wave"}),
+            ("prefix_cache", prefix_cache, {"page_size": 16}))
+    for name, traffic, kw in runs:
+        res, toks = {}, []
+        for rep in range(2):
+            eng = Engine(model, params, ServeConfig(
+                max_batch=8, max_len=1024, decode_chunk=8, profile=True, **kw))
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got, prompt_toks = traffic(eng)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            gemm = kernels.gemm_launches_by_path()
+            flash = kernels.flash_launches_by_path()
+            st = eng.stats()
+            assert gemm["decode"] > 0 and gemm["wgmma"] > 0, (name, gemm)
+            assert gemm["wmma"] == 0 and gemm["fma"] == 0, (name, gemm)
+            assert flash["wgmma"] > 0 and flash["fma"] == 0, (name, flash)
+            assert st["device_transfers"] == st["chunks"] + st["waves"] > 0, st
+            assert all(len(o) == 32 and all(0 <= t < vocab for t in o)
+                       for o in got)
+            toks.append(got)
+            res.setdefault("walls", []).append(wall)
+            if rep == 0:
+                res.update(
+                    wall_seconds=wall, prefill_seconds=st["prefill_seconds"],
+                    decode_seconds=st["decode_seconds"],
+                    tokens_generated=st["tokens_generated"],
+                    prefill_tok_per_s=prompt_toks / st["prefill_seconds"],
+                    decode_tok_per_s=st["tokens_generated"]
+                    / st["decode_seconds"],
+                    chunks=st["chunks"], waves=st["waves"],
+                    device_transfers=st["device_transfers"],
+                    gemm_launches_by_path=gemm, flash_launches_by_path=flash,
+                    launches=kernels.launch_counts(),
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+                if name == "prefix_cache":
+                    pc = st["prefix_cache"]
+                    if extra:
+                        assert pc["hits_full"] + pc["hits_partial"] == 0, pc
+                    else:
+                        assert pc["hits_full"] >= 4, pc
+                        assert pc["hits_partial"] >= 7, pc
+                    res["prefix_cache"] = {k: pc[k] for k in (
+                        "hits_full", "hits_partial", "misses")}
+            del eng
+        assert toks[0] == toks[1], f"{name}: tokens differ on repeat"
+        res["tokens_equal_on_repeat"] = True
+        out[name] = res
+
+
+def finite_prefill(torch, model, params, prompts, extra=None):
+    """One batched ragged prefill of ``prompts``: (V,) logits a row, all
+    finite.  Returns the batch."""
+    batch = ragged_batch(torch, prompts)
+    batch.update(extra or {})
+    with torch.no_grad():
+        logits, _ = model.prefill(params, batch, model.init_cache(
+            len(prompts), batch["tokens"].shape[1], device="cuda"))
+    torch.cuda.synchronize()
+    assert tuple(logits.shape) == (len(prompts), model.cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
+    return batch
+
+
+def f32_exactness(torch, cfg32, rng, extra_fn=None):
+    """Full width at ``cfg32``'s depth in float32 (flash through the fma
+    kernel): the continuous and wave engines' tokens equal the per-prompt
+    oracle's for 6 prompts of 5-200 tokens."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig, generate_per_prompt
+    m32 = build_model(cfg32)
+    p32 = m32.init(seed=1, device="cuda")
+    prompts32 = [rng.integers(0, cfg32.vocab_size, size=int(n)).tolist()
+                 for n in (5, 37, 11, 200, 64, 130)]
+    extra = extra_fn(len(prompts32)) if extra_fn else None
+    want = generate_per_prompt(m32, p32, prompts32, 8, max_len=512,
+                               extra_inputs=extra)
+    f = {"layers": cfg32.num_layers, "requests": len(prompts32)}
+    for sched in ("continuous", "wave"):
+        got = Engine(m32, p32, ServeConfig(
+            max_batch=4, max_len=512, decode_chunk=8,
+            scheduler=sched)).generate(prompts32, 8, extra_inputs=extra)
+        assert got == want, (f"{cfg32.name} f32 {sched}", got, want)
+        f[f"{sched}_equal_oracle"] = True
+    del p32, extra
+    free_card(torch)
+    return f
+
+
+def phase_serve_moe(torch, ctx):
+    """Full-width olmoe-1b-7b (64 experts, top-8, MHA at d = 128) in bf16
+    with flash prefill through ``serve_runs``; then the first layer's drops
+    at cf 1.25, the expert einsums' time, and a float32 pass (full width, 2
+    layers, cf 8.0, where no slot can drop)."""
+    import dataclasses
+
+    out, cfg, model, params, prompts, cold, warm, rng = family_phase_setup(
+        torch, ctx, "olmoe-1b-7b")
+    out = {"phase": "serve_moe", **out}
+    serve_runs(torch, out, model, params, prompts, cold, warm)
+    batch = finite_prefill(torch, model, params, prompts[:8])
+    real_dropped, real_slots, pad_dropped, cap = first_layer_drops(
+        torch, model, params, batch)
+    out["first_layer_drops_cf1.25"] = {
+        "plen": int(batch["tokens"].shape[1]), "capacity": cap,
+        "real_slots_dropped": real_dropped, "real_slots": real_slots,
+        "pad_slots_dropped": pad_dropped}
+    timers = (Timer(torch), Timer(torch, device_only=True))
+    out["expert_einsums"] = [
+        expert_einsum_case(torch, timers, model, params, 8, 8,
+                           "decode (B=8, C=8)"),
+        expert_einsum_case(torch, timers, model, params, 8, cap,
+                           f"prefill (B=8, C={cap})")]
+    del params, batch
+    free_card(torch)
+    out["f32_pass"] = f32_exactness(torch, dataclasses.replace(
+        cfg, dtype="float32", num_layers=2, moe_capacity_factor=8.0), rng)
+    out["f32_pass"]["capacity_factor"] = 8.0
+    emit(out)
+    return out
+
+
+def image_embeds(torch, cfg, n: int, seed: int, dtype):
+    """Seeded random image embeddings (n, N_img, D), drawn on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return {"image_embeds": torch.randn(
+        n, cfg.num_image_tokens, cfg.d_model, generator=gen,
+        device="cuda").to(dtype)}
+
+
+def phase_serve_vlm(torch, ctx):
+    """Full-width llama-3.2-vision-11b (8 units of 4 self layers and a cross
+    layer over 1601 image tokens) in bf16 with flash prefill and seeded
+    random image embeddings through ``serve_runs`` (the prefix cache is not
+    consulted with extra inputs); then a float32 pass at full width and one
+    unit (5 layers)."""
+    import dataclasses
+
+    out, cfg, model, params, prompts, cold, warm, rng = family_phase_setup(
+        torch, ctx, "llama-3.2-vision-11b")
+    out = {"phase": "serve_vlm", **out}
+    extra = image_embeds(torch, cfg, 12, 0, torch.bfloat16)
+    serve_runs(torch, out, model, params, prompts, cold, warm, extra)
+    finite_prefill(torch, model, params, prompts[:8],
+                   {k: v[:8] for k, v in extra.items()})
+    del params, extra
+    free_card(torch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=cfg.cross_attn_period)
+    out["f32_pass"] = f32_exactness(
+        torch, cfg32, rng,
+        lambda n: image_embeds(torch, cfg32, n, 1, torch.float32))
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def _sums(mine):
@@ -775,25 +1157,39 @@ def _sums(mine):
             if device_ms else None}
 
 
-def summarize(rows, launches, paths, features):
-    """One entry per kernel: its main-path cases summed (each shape once),
-    and the same sums per path with the serve phase's launches by path;
-    ``launches_by_pass`` the launches by path of each serve_features pass."""
+def summarize(rows, launches, paths, features, families):
+    """One entry per kernel: its main-path cases summed (each model's shapes
+    once; ``by_model`` splits the sums), and the same sums per path with the
+    serve phase's launches by path.  ``launches`` sums the main-path runs of
+    every model (the serve phase, and the continuous run of serve_moe and
+    serve_vlm, each with the counts set to 0 before it);
+    ``launches_by_run`` splits it, and ``launches_by_pass`` has the
+    launches by path of every serve_features, serve_moe and serve_vlm
+    run."""
     out = []
+    family_runs = {f"{fam['phase']} {k}": v for fam in families
+                   for k, v in fam.items()
+                   if isinstance(v, dict) and "launches" in v}
     for kname, route_src, repl, repl_fn in KERNELS:
         mine = [r for r in rows if r["name"] == kname and r["main_path"]]
+        by_run = {"serve": launches[kname]}
+        by_run.update({fam["phase"]: fam["continuous"]["launches"][kname]
+                       for fam in families})
         entry = {"name": kname, "route": "cuda", "source": route_src,
                  "replaces": repl, "replaces_function": repl_fn,
-                 "launches": launches[kname],
+                 "launches": sum(by_run.values()), "launches_by_run": by_run,
                  "max_abs_err": max(r["max_abs_err"] for r in rows
                                     if r["name"] == kname)}
         sums = _sums(mine)
         entry.update(sums, kernel_ms=sums["ms"])
+        entry["by_model"] = {m: _sums([r for r in mine if r["model"] == m])
+                             for m in sorted({r["model"] for r in mine})}
         entry["launches_by_path"] = paths[kname]
         key = ("gemm_launches_by_path" if kname == "gemm"
                else "flash_launches_by_path")
-        entry["launches_by_pass"] = {name: res[key]
-                                     for name, res in features.items()
+        entry["launches_by_pass"] = {name: res[key] for name, res in
+                                     list(features.items())
+                                     + list(family_runs.items())
                                      if isinstance(res, dict) and key in res}
         entry["paths"] = {p: _sums([r for r in mine if r["path"] == p])
                           for p in sorted({r["path"] for r in mine})}
@@ -831,8 +1227,9 @@ def main(argv=None) -> int:
     rows = phase_kernels(torch, args.out)
     launches, paths, ctx = phase_serve(torch)
     features = phase_serve_features(torch, ctx)
+    families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx)]
     print(card, flush=True)
-    emit({"kernels": summarize(rows, launches, paths, features)})
+    emit({"kernels": summarize(rows, launches, paths, features, families)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

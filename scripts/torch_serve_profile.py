@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the serving time goes in the PyTorch/CUDA port, on one GPU.
 
-    python scripts/torch_serve_profile.py [--walls N] [--src DIR] [--out DIR]
-        [--scheduler continuous|wave] [--kv-int8] [--traffic random|shared-prefix]
+    python scripts/torch_serve_profile.py [--arch NAME] [--walls N] [--src DIR]
+        [--out DIR] [--scheduler continuous|wave] [--kv-int8]
+        [--traffic random|shared-prefix]
 
 Serves the same workload as ``chip_smoke.py``'s serve phase (full-width
 llama3.2-1b in bf16, flash prefill, 12 seeded requests, 8 slots,
-``max_new=32``) once to warm up, ``--walls`` times unprofiled, then once
+``max_new=32``; ``--arch olmoe-1b-7b`` or ``llama-3.2-vision-11b`` serves
+that model on it, the latter with seeded random image embeddings) once
+to warm up, ``--walls`` times unprofiled, then once
 under ``torch.profiler``.  ``--scheduler wave`` serves it on the wave
 scheduler, ``--kv-int8`` with an int8 KV cache (which runs the wave
 scheduler).  ``--traffic shared-prefix`` serves ``chip_smoke.py``'s
@@ -55,9 +58,23 @@ def family(name: str) -> str:
     return "other"
 
 
+def launching_ops(events, torch) -> dict:
+    """Kernel name -> ``name.overload`` of a PyTorch op the profiler
+    attaches a kernel of that name to (the MoE expert einsums' ``nvjet_*``
+    kernels show ``aten::bmm``)."""
+    out = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            for k in e.kernels:
+                out.setdefault(k.name, f"{e.name}.{e.overload_name}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    help="a ported catalog entry, served at full width")
     ap.add_argument("--walls", type=int, default=1,
                     help="unprofiled serves timed after the warm-up")
     ap.add_argument("--src", default=SRC,
@@ -85,7 +102,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="bfloat16",
+    cfg = dataclasses.replace(get_config(args.arch), dtype="bfloat16",
                               attention_impl="flash")
     params = build_model(cfg).init(seed=0, device="cuda")
     if args.kv_int8:
@@ -94,6 +111,11 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
                for n in rng.integers(5, 301, size=12)]
+    # extra inputs (the vlm family's image embeddings): seeded, on the card
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    extra = {k: torch.randn(spec.shape, generator=gen, device="cuda").to(
+        spec.dtype) for k, spec in model.extra_inputs(12).items()} or None
     # only the keys asked for, so a --src tree without them still serves
     serve_kw = dict(max_batch=8, max_len=1024, decode_chunk=8)
     if args.scheduler:
@@ -105,11 +127,14 @@ def main(argv=None) -> int:
     def serve():
         eng = Engine(model, params, ServeConfig(**serve_kw))
         t0 = time.perf_counter()
-        eng.generate(prompts, 32)
+        eng.generate(prompts, 32, **({"extra_inputs": extra} if extra else {}))
         torch.cuda.synchronize()
         return time.perf_counter() - t0, eng.stats()
 
     if args.traffic == "shared-prefix":
+        if extra:
+            ap.error("--traffic shared-prefix serves models without extra "
+                     "inputs (the prefix cache skips requests with them)")
         sys.path.insert(0, os.path.join(os.path.dirname(SRC)))
         from chip_smoke import drain, prefix_traffic
         from repro_torch.serve import Request
@@ -158,6 +183,7 @@ def main(argv=None) -> int:
         by_family[family(e.name)] = by_family.get(family(e.name), 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy_s = sum(by_family.values()) / 1e6
+    op_of_name = launching_ops(prof.events(), torch)
     gemm_by_kernel = {}
     for name, us in by_name.items():
         for kern in FAMILIES[0][1]:
@@ -165,7 +191,8 @@ def main(argv=None) -> int:
                 gemm_by_kernel[kern] = gemm_by_kernel.get(kern, 0.0) + us / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = {
-        "card": card, "src": args.src, "walls_unprofiled": walls,
+        "card": card, "arch": args.arch, "src": args.src,
+        "walls_unprofiled": walls,
         "wall_seconds_unprofiled": wall_plain,
         "wall_seconds": wall, "tokens": st["tokens_generated"],
         "chunks": st["chunks"], "waves": st.get("waves"),
@@ -182,7 +209,8 @@ def main(argv=None) -> int:
         "gemm_seconds_by_kernel": gemm_by_kernel,
         "gemm_share_of_busy": (by_family.get(FAMILIES[0][0], 0.0) / 1e6 / busy_s
                                if events else None),
-        "top_kernels_seconds": [[n[:90], v / 1e6] for n, v in top],
+        "top_kernels_seconds": [[n[:90], v / 1e6, op_of_name.get(n)]
+                                for n, v in top],
         "kernel_launches": st["kernel_launches"],
     }
     print(json.dumps(out), flush=True)

@@ -1,24 +1,14 @@
 """Architecture catalog: ``--arch <id>`` resolves here.
 
-The same ten configurations as the JAX package's catalog.  Only the
-``dense`` family has a model path in the port so far; ``build_model``
-refuses the others (see ``repro_torch.models.model``).
+The same ten configurations as the JAX package's catalog.  The ``dense``,
+``moe`` and ``vlm`` families have a model path in the port so far;
+``build_model`` refuses the others (see ``repro_torch.models.model``).
 """
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.llama3_2_1b import CONFIG as _llama1b
+from repro_torch.configs.llama_3_2_vision_11b import CONFIG as _vlm
+from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
 
-_vlm = ModelConfig(
-    name="llama-3.2-vision-11b", family="vlm",
-    num_layers=40, d_model=4096, num_heads=32, num_kv_heads=8,
-    d_ff=14336, vocab_size=128256, rope_theta=500000.0,
-    cross_attn_period=5, num_image_tokens=1601,
-)
-_olmoe = ModelConfig(
-    name="olmoe-1b-7b", family="moe",
-    num_layers=16, d_model=2048, num_heads=16, num_kv_heads=16,
-    d_ff=1024, vocab_size=50304, rope_theta=10000.0,
-    num_experts=64, experts_per_token=8,
-)
 _moonshot = ModelConfig(
     name="moonshot-v1-16b-a3b", family="moe",
     num_layers=48, d_model=2048, num_heads=16, num_kv_heads=16,

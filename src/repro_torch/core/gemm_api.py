@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from typing import List, Optional, Tuple
@@ -85,8 +86,44 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
 def einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` with f32 accumulation and an f32 result.
 
-    The counterpart of the reference's ``preferred_element_type=float32``:
-    the operands are upcast, so the contraction sums in f32.  A plain
-    product outside any kernel of this package, like the reference's XLA dot.
+    The counterpart of the reference's ``preferred_element_type=float32``.
+    Two bf16 operands on the card contract as one batched product with an
+    f32 result (``torch.bmm(..., out_dtype=torch.float32)``), read where
+    they lie: an expert weight stack is not copied to f32 for it.  Other
+    operands are upcast, so the contraction sums in f32.  A plain product
+    outside any kernel of this package, like the reference's XLA dot.
     """
+    if (len(operands) == 2 and operands[0].is_cuda
+            and all(o.dtype == torch.bfloat16 for o in operands)):
+        return contract_f32(subscripts, *operands,
+                            bmm=functools.partial(torch.bmm,
+                                                  out_dtype=torch.float32))
     return torch.einsum(subscripts, *(o.float() for o in operands))
+
+
+def contract_f32(subscripts: str, a: torch.Tensor, b: torch.Tensor, *,
+                 bmm) -> torch.Tensor:
+    """A two-operand einsum as one ``bmm(a3, b3)`` over (batch, free, sum)
+    views.  Every index must appear in the output or in both operands, each
+    once per operand.  ``a`` and ``b`` are only permuted and reshaped: an
+    operand whose batch / free / summed indices already lie in that order
+    (a stacked (E, D, F) weight under ``"ebcd,edf->ebcf"``) is not copied."""
+    lhs, out = subscripts.replace(" ", "").split("->")
+    sa, sb = lhs.split(",")
+    batch = [c for c in sa if c in sb and c in out]
+    summed = [c for c in sa if c in sb and c not in out]
+    free_a = [c for c in sa if c not in sb]
+    free_b = [c for c in sb if c not in sa]
+    order = batch + free_a + free_b
+    if (len(set(sa)) != len(sa) or len(set(sb)) != len(sb)
+            or sorted(order) != sorted(out)):
+        raise ValueError(f"contract_f32 does not take {subscripts!r}")
+    size = dict(zip(sa, a.shape))
+    size.update(zip(sb, b.shape))
+    n = lambda idx: math.prod(size[c] for c in idx)  # noqa: E731
+    a3 = a.permute([sa.index(c) for c in batch + free_a + summed]).reshape(
+        n(batch), n(free_a), n(summed))
+    b3 = b.permute([sb.index(c) for c in batch + summed + free_b]).reshape(
+        n(batch), n(summed), n(free_b))
+    res = bmm(a3, b3).view([size[c] for c in order])
+    return res.permute([order.index(c) for c in out])

@@ -11,12 +11,16 @@ random, drawn from seed 0.  ``--scheduler``, ``--page-size``,
 engine's ``ServeConfig``; ``--temperature`` samples instead of greedy
 decoding; ``--kv-int8`` serves with an int8 KV cache (which runs the wave
 scheduler); ``--server`` submits every prompt to a threaded ``Server`` with
-a stream callback instead of one batched ``generate`` call.
+a stream callback instead of one batched ``generate`` call.  A model with
+extra inputs (the vlm family's image embeddings) gets zeros for them, as
+the reference's launcher gives, and cannot be served through ``--server``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+
+import torch
 
 from repro_torch.configs.catalog import get_config
 from repro_torch.models import build_model
@@ -81,6 +85,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if args.server and build_model(cfg).extra_inputs(1):
+        ap.error("--server cannot carry extra-input models "
+                 "(extras are positional per drain)")
     if args.reduced:
         cfg = cfg.reduced()
     if args.attn_impl:
@@ -97,11 +104,13 @@ def main(argv=None) -> None:
         scheduler=args.scheduler, page_size=args.page_size,
         capacity_tokens=args.capacity_tokens, decode_chunk=args.decode_chunk,
         prefix_cache=not args.no_prefix_cache, device=args.device))
+    extra = {k: torch.zeros(spec.shape, dtype=spec.dtype, device=eng.device)
+             for k, spec in model.extra_inputs(len(prompts)).items()}
     server = None
     if args.server:
         outs, server = _serve_with_server(eng, prompts, args.max_new)
     else:
-        outs = eng.generate(prompts, args.max_new)
+        outs = eng.generate(prompts, args.max_new, extra_inputs=extra or None)
     for p, o in zip(prompts, outs):
         print(f"prompt={p} -> {o}")
     if args.stats:

@@ -3,8 +3,8 @@
 Every dense projection goes through ``core.matmul`` (the CUDA GEMM kernel
 on the card) and every eligible prefill attention through
 ``core.flash_attention`` (the CUDA flash kernel).  Decode-step attention
-(``_sdpa_chunked``) stays plain torch ops, as it is plain jnp in the
-reference.
+and cross-attention (``_sdpa_chunked``) stay plain torch ops, as they are
+plain jnp in the reference.
 """
 from __future__ import annotations
 
@@ -100,6 +100,17 @@ def attention_template(d_model: int, dims: AttnDims, qkv_bias: bool = False):
         t["bk"] = ParamSpec((kv * hd,), ("ff",), init="zeros")
         t["bv"] = ParamSpec((kv * hd,), ("ff",), init="zeros")
     return t
+
+
+def cross_kv(params, src: torch.Tensor, dims: AttnDims):
+    """Project encoder / image embeddings (B, N, D) to the cross-attention
+    K, V (B, N, KV, hd), once per prompt."""
+    b = src.shape[0]
+    k = matmul(src, params["wk"], bias=params.get("bk")).reshape(
+        b, -1, dims.num_kv_heads, dims.head_dim)
+    v = matmul(src, params["wv"], bias=params.get("bv")).reshape(
+        b, -1, dims.num_kv_heads, dims.head_dim)
+    return k, v
 
 
 def _sdpa_chunked(q, k, v, *, causal: bool, q_offset: int,
@@ -204,12 +215,15 @@ def attention(
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_offset: Optional[int] = None,
     causal: bool = True,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     q_chunk: int = 1024,
     p_dtype: torch.dtype = torch.float32,
     attn_impl: str = "chunked",
     kv_start: Optional[torch.Tensor] = None,
 ):
-    """Self-attention.  Returns (out, new_kv_cache_or_None).
+    """Self-attention, or cross-attention over ``kv_override`` (K, V from
+    :func:`cross_kv`: non-causal, chunked, no cache).  Returns (out,
+    new_kv_cache_or_None).
 
     With ``kv_cache`` the new K/V are written at ``cache_offset`` and
     attention runs over the cache.  The write is in place: the cache
@@ -226,7 +240,7 @@ def attention(
     use_flash = False
     if attn_impl == "flash":
         reason = flash_fallback_reason(
-            causal=causal, seq_len=s, cross_attention=False,
+            causal=causal, seq_len=s, cross_attention=kv_override is not None,
             cache_offset_static_zero=(kv_cache is None or not cache_offset))
         if reason is None:
             use_flash = True
@@ -234,6 +248,12 @@ def attention(
             _log_flash_fallback(reason)
 
     q = matmul(x, params["wq"], bias=params.get("bq")).reshape(b, s, h, hd)
+    if kv_override is not None:
+        k, v = kv_override
+        out = _sdpa_chunked(q.reshape(b, s, kvh, dims.group, hd), k, v,
+                            causal=False, q_offset=0, kv_len=None,
+                            chunk=q_chunk, p_dtype=p_dtype)
+        return matmul(out.reshape(b, s, h * hd), params["wo"]), None
     k = matmul(x, params["wk"], bias=params.get("bk")).reshape(b, s, kvh, hd)
     v = matmul(x, params["wv"], bias=params.get("bv")).reshape(b, s, kvh, hd)
     if rope_theta:

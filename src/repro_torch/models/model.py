@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -10,6 +10,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params, param_count
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one extra model input."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +48,28 @@ class Model:
     def decode_step(self, params, tokens, cache, offset: int, kv_start=None):
         return T.decode_step(self.cfg, params, tokens, cache, offset, kv_start)
 
+    def extra_inputs(self, batch_size: int) -> Dict[str, TensorSpec]:
+        """Model inputs beyond the tokens (the modality frontends' stub
+        outputs), by name: the vlm family's ``image_embeds`` (B, N_img, D)."""
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            return {"image_embeds": TensorSpec(
+                (batch_size, cfg.num_image_tokens, cfg.d_model),
+                getattr(torch, cfg.dtype))}
+        return {}
+
+
+#: families with a model path in the port
+PORTED_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; {PORTED_FAMILIES} are "
+            f"(ROADMAP.md queue 1, item 6: the other families)")
+
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the dense family is "
-            f"(ROADMAP.md queue 1, item 6: the other families)")
+    check_ported(cfg)
     return Model(cfg=cfg, template=T.template(cfg))

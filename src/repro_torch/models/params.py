@@ -73,7 +73,8 @@ def init_params(template, seed: int = 0, default_dtype: str = "float32",
         gen.manual_seed(_leaf_seed(seed, path))
         x = torch.randn(spec.shape, generator=gen, device=dev,
                         dtype=torch.float32)
-        return (x * scale).to(dtype)
+        # scaled in place: one f32 staging copy of this leaf, not two
+        return x.mul_(scale).to(dtype)
 
     return map_tree(init_leaf, template)
 

@@ -1,11 +1,18 @@
-"""Decoder-only transformer LM, dense branch: built from the shared layers,
-the GEMM kernel and the flash kernel.
+"""Decoder-only transformer LM, dense, MoE and VLM branches: built from
+the shared layers, the MoE layer, the GEMM kernel and the flash kernel.
 
 Layer params are stacked on a leading "layer" dim, as in the reference; the
 stack runs as a Python loop over that dim where the reference uses
 ``lax.scan``.  KV caches are ``{"self": (K, V)}`` with K, V of shape
 (L, B, S, KV, hd), updated in place; an int8 cache (``cfg.kv_quant``) holds
 ``{"q", "s"}`` dicts in place of K and V.
+
+VLM (llama-3.2-vision style): the stack is ``U`` units of ``P - 1`` self
+layers and one cross-attention layer over image embeddings (``P =
+cross_attn_period``).  Its self cache keeps both leading dims, (U, P-1, B,
+S, KV, hd), and ``"cross"`` holds each unit's image K, V (U, B, N_img, KV,
+hd), computed at prefill.  Every cache leaf has its batch dim at -4 and its
+token dim at -3, whatever leads them: the serve engine indexes from the end.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import matmul
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.params import ParamSpec, map_tree
 
 
@@ -38,12 +46,30 @@ def _layer(tree, i: int):
 
 def _dense_block_template(cfg: ModelConfig):
     qkv_bias = cfg.name.startswith("chatglm")  # ChatGLM uses QKV bias
-    return {
+    t = {
         "ln1": L.norm_template(cfg.d_model, cfg.norm),
         "attn": L.attention_template(cfg.d_model, attn_dims(cfg), qkv_bias),
         "ln2": L.norm_template(cfg.d_model, cfg.norm),
+    }
+    if cfg.num_experts:
+        t["moe"] = M.moe_template(cfg.d_model, cfg.d_ff, cfg.num_experts)
+    else:
+        t["mlp"] = L.mlp_template(cfg.d_model, cfg.d_ff)
+    return t
+
+
+def _cross_block_template(cfg: ModelConfig):
+    return {
+        "ln1": L.norm_template(cfg.d_model, cfg.norm),
+        "cross": L.attention_template(cfg.d_model, attn_dims(cfg)),
+        "ln2": L.norm_template(cfg.d_model, cfg.norm),
         "mlp": L.mlp_template(cfg.d_model, cfg.d_ff),
     }
+
+
+def _units(cfg: ModelConfig):
+    """VLM: (units, self layers per unit)."""
+    return cfg.num_layers // cfg.cross_attn_period, cfg.cross_attn_period - 1
 
 
 def template(cfg: ModelConfig):
@@ -55,12 +81,21 @@ def template(cfg: ModelConfig):
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                  ("embed", "vocab"))
-    t["blocks"] = _stack_template(_dense_block_template(cfg), cfg.num_layers)
+    if cfg.family == "vlm":
+        units, per_unit = _units(cfg)
+        t["units"] = {
+            "selfs": _stack_template(
+                _stack_template(_dense_block_template(cfg), per_unit), units),
+            "cross": _stack_template(_cross_block_template(cfg), units),
+        }
+    else:
+        t["blocks"] = _stack_template(_dense_block_template(cfg),
+                                      cfg.num_layers)
     return t
 
 
 def _dense_block(cfg: ModelConfig, bp, x, positions, kv_cache=None,
-                 cache_offset=None, kv_start=None):
+                 cache_offset=None, kv_start=None, with_aux=False):
     h, new_cache = L.attention(
         bp["attn"], L.apply_norm(bp["ln1"], x, eps=cfg.norm_eps),
         attn_dims(cfg), positions=positions,
@@ -70,19 +105,78 @@ def _dense_block(cfg: ModelConfig, bp, x, positions, kv_cache=None,
         p_dtype=getattr(torch, cfg.attn_p_dtype),
         attn_impl=cfg.attention_impl, kv_start=kv_start)
     x = x + h
-    y = L.mlp(bp["mlp"], L.apply_norm(bp["ln2"], x, eps=cfg.norm_eps))
-    return x + y, new_cache
+    y_in = L.apply_norm(bp["ln2"], x, eps=cfg.norm_eps)
+    if cfg.num_experts:
+        y, aux = M.moe_layer(
+            bp["moe"], y_in, top_k=cfg.experts_per_token,
+            num_experts=cfg.num_experts,
+            capacity_factor=cfg.moe_capacity_factor, with_aux=with_aux)
+    else:
+        y, aux = L.mlp(bp["mlp"], y_in), 0.0
+    return x + y, new_cache, aux
 
 
 def _run_dense_stack(cfg, blocks, x, positions, caches=None,
-                     cache_offset=None, kv_start=None):
-    """Loop over the stacked layers.  Returns (x, caches_or_None)."""
-    for i in range(cfg.num_layers):
+                     cache_offset=None, kv_start=None, with_aux=False):
+    """Loop over the stacked layers (``blocks``' leading dim).  Returns (x,
+    caches_or_None, aux): with ``with_aux`` the MoE layers' auxiliary losses
+    summed in layer order (0.0 when dense), else None (the serving steps
+    discard it)."""
+    aux = 0.0
+    for i in range(blocks["ln1"]["scale"].shape[0]):
         cache = None if caches is None else tuple(_layer(c, i) for c in caches)
-        x, _ = _dense_block(cfg, _layer(blocks, i), x, positions,
-                            kv_cache=cache, cache_offset=cache_offset,
-                            kv_start=kv_start)
-    return x, caches
+        x, _, a = _dense_block(cfg, _layer(blocks, i), x, positions,
+                               kv_cache=cache, cache_offset=cache_offset,
+                               kv_start=kv_start, with_aux=with_aux)
+        if with_aux:
+            aux = aux + a
+    return x, caches, (aux if with_aux else None)
+
+
+def _cross_block(cfg: ModelConfig, bp, x, cross_kv_pair):
+    h, _ = L.attention(
+        bp["cross"], L.apply_norm(bp["ln1"], x, eps=cfg.norm_eps),
+        attn_dims(cfg), kv_override=cross_kv_pair,
+        p_dtype=getattr(torch, cfg.attn_p_dtype))
+    x = x + h
+    y = L.mlp(bp["mlp"], L.apply_norm(bp["ln2"], x, eps=cfg.norm_eps))
+    return x + y
+
+
+def _vlm_cross_cache(cfg: ModelConfig, params, image_embeds):
+    """Every unit's cross K, V of the image embeddings: each (U, B, N_img,
+    KV, hd)."""
+    src = image_embeds.to(getattr(torch, cfg.dtype))
+    cross = params["units"]["cross"]
+    per_unit = [L.cross_kv(_layer(cross, u)["cross"], src, attn_dims(cfg))
+                for u in range(_units(cfg)[0])]
+    return tuple(torch.stack(t) for t in zip(*per_unit))
+
+
+def _run_vlm_stack(cfg, params, x, positions, cross_cache, caches=None,
+                   cache_offset=None, kv_start=None, with_aux=False):
+    """Loop over the units: the unit's P - 1 self layers (cache leaves
+    [u]), then its cross layer.  Returns (x, caches_or_None, aux) as
+    :func:`_run_dense_stack`."""
+    ks, vs = cross_cache
+    aux = 0.0
+    for u in range(_units(cfg)[0]):
+        cache = None if caches is None else tuple(_layer(c, u) for c in caches)
+        x, _, a = _run_dense_stack(cfg, _layer(params["units"]["selfs"], u),
+                                   x, positions, cache, cache_offset,
+                                   kv_start, with_aux)
+        if with_aux:
+            aux = aux + a
+        x = _cross_block(cfg, _layer(params["units"]["cross"], u), x,
+                         (ks[u], vs[u]))
+    return x, caches, (aux if with_aux else None)
+
+
+def _run_stack(cfg, params, x, positions, cross_cache=None, **kw):
+    """The family's stack: (x, caches_or_None, aux)."""
+    if cfg.family == "vlm":
+        return _run_vlm_stack(cfg, params, x, positions, cross_cache, **kw)
+    return _run_dense_stack(cfg, params["blocks"], x, positions, **kw)
 
 
 def _embed(cfg, params, tokens):
@@ -119,27 +213,39 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
-    x, _ = _run_dense_stack(cfg, params["blocks"], x,
-                            _positions(b, s, tokens.device))
-    return _unembed(cfg, params, x), 0.0
+    cross = (_vlm_cross_cache(cfg, params, batch["image_embeds"])
+             if cfg.family == "vlm" else None)
+    x, _, aux = _run_stack(cfg, params, x, _positions(b, s, tokens.device),
+                           cross, with_aux=True)
+    return _unembed(cfg, params, x), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None):
     """Zeroed KV cache ``{"self": (K, V)}``, each (L, B, max_len, KV, hd);
     with ``cfg.kv_quant`` each of K and V is ``{"q": int8 (L, B, max_len,
-    KV, hd), "s": f32 scales (L, B, max_len, KV)}``."""
+    KV, hd), "s": f32 scales (L, B, max_len, KV)}``.  VLM: ``"self"`` leaves
+    (U, P-1, B, max_len, KV, hd) and ``"cross"`` (U, B, N_img, KV, hd), both
+    plain (as the reference, whatever ``kv_quant`` says)."""
     dtype = dtype or getattr(torch, cfg.dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
     dev = resolve_device(device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.family == "vlm":
+        units, per_unit = _units(cfg)
+        return {"self": tuple(zeros(units, per_unit, batch, max_len, *kv)
+                              for _ in range(2)),
+                "cross": tuple(zeros(units, batch, cfg.num_image_tokens, *kv)
+                               for _ in range(2))}
+    shape = (cfg.num_layers, batch, max_len) + kv
     if cfg.kv_quant:
         return {"self": tuple(
             {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
              "s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev)}
             for _ in range(2))}
-    return {"self": (torch.zeros(shape, dtype=dtype, device=dev),
-                     torch.zeros(shape, dtype=dtype, device=dev))}
+    return {"self": (zeros(*shape), zeros(*shape))}
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
@@ -148,18 +254,25 @@ def prefill(cfg: ModelConfig, params, batch, cache):
 
     ``batch["kv_start"]`` (optional (B,) int32) marks per-row left pad: pad
     columns are masked out of attention and positions restart at 0 at each
-    row's first real token, so every row computes what it would alone."""
+    row's first real token, so every row computes what it would alone.
+    VLM: ``batch["image_embeds"]`` (B, N_img, D); the returned cache's
+    ``"cross"`` holds their K, V (new tensors, not ``cache``'s)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     kv_start: Optional[torch.Tensor] = batch.get("kv_start")
     x = _embed(cfg, params, tokens)
     pos = (_positions(b, s, tokens.device) if kv_start is None
            else _ragged_positions(s, kv_start))
-    x, new_self = _run_dense_stack(cfg, params["blocks"], x, pos,
-                                   caches=cache["self"], cache_offset=0,
-                                   kv_start=kv_start)
+    cross = (_vlm_cross_cache(cfg, params, batch["image_embeds"])
+             if cfg.family == "vlm" else None)
+    x, new_self, _ = _run_stack(cfg, params, x, pos, cross,
+                                caches=cache["self"], cache_offset=0,
+                                kv_start=kv_start)
     logits = _unembed(cfg, params, x[:, -1:, :])[:, 0]
-    return logits, {"self": new_self}
+    out = {"self": new_self}
+    if cross is not None:
+        out["cross"] = cross
+    return logits, out
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, offset: int,
@@ -172,7 +285,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, offset: int,
         pos = torch.full((b, 1), offset, dtype=torch.int32, device=tokens.device)
     else:
         pos = (offset - kv_start).clamp(min=0).to(torch.int32)[:, None]
-    x, new_self = _run_dense_stack(cfg, params["blocks"], x, pos,
-                                   caches=cache["self"], cache_offset=offset,
-                                   kv_start=kv_start)
-    return _unembed(cfg, params, x)[:, 0], {"self": new_self}
+    x, new_self, _ = _run_stack(cfg, params, x, pos, cache.get("cross"),
+                                caches=cache["self"], cache_offset=offset,
+                                kv_start=kv_start)
+    return _unembed(cfg, params, x)[:, 0], dict(cache, self=new_self)

@@ -54,9 +54,9 @@ class Request:
     Args:
       prompt: non-empty token-id sequence.
       max_new_tokens: decode budget (>= 1).
-      row: index of this request in per-request input arrays (the JAX
-        package's ``extra_inputs``; the dense family has none, so the port
-        only carries it — ``generate`` fills it, a Server rejects it).
+      row: index of this request in the ``extra_inputs`` arrays later
+        passed to ``Engine.run`` (the vlm family's image embeddings; needed
+        when extras are given — ``generate`` fills it, a Server rejects it).
       stream: optional callback invoked with a :class:`StreamEvent` per
         generated token plus one terminal event, from the thread driving
         the engine (the server's worker thread in server mode).

@@ -51,6 +51,14 @@ with two schedulers sharing one model path.
   row's first real token, so each row decodes what it would decode alone.
   Prompt lengths are bucketed to powers of two (min 8; a wave's bucket is
   clamped so the bucket plus its decode budget fits ``max_len``).
+* **Extra inputs and fixed leaves** — ``generate``/``run`` take
+  ``extra_inputs`` (the vlm family's image embeddings), one row per
+  request (``Request.row``), placed at each request's slot of a prefill
+  batch.  Cache leaves that are not paged (the vlm family's cross K/V) live
+  in one resident tree over the slots; admission copies the admitted rows
+  into it, and decode chunks read it whole.  The prefix cache is skipped
+  while extras are given.  Every cache leaf keeps its leading dims (L, or
+  U and P-1) and is indexed from the end: batch at -4, tokens at -3.
 """
 from __future__ import annotations
 
@@ -64,7 +72,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.paged import paged_copy, paged_gather, paged_scatter
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, check_ported
 from repro_torch.serve import api, kv_pages
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.reference import greedy
@@ -78,7 +86,7 @@ DEFAULT_PAGE_SIZE = 16
 _LATENCY_WINDOW = 4096
 #: smallest uniform draw for Gumbel noise (``jax.random.gumbel``'s minval)
 _TINY = torch.finfo(torch.float32).tiny
-#: batch-dim kind of each non-paged cache leaf (``_fixed_rows``)
+#: batch-dim kind of each non-paged cache leaf (``_fixed_leaves``)
 _FIXED_KINDS = {"cross": "kv", "ssm": "ssm", "conv": "conv"}
 
 
@@ -168,18 +176,24 @@ class _SlotScheduler:
         return sum(max(c - 1, 0) for c in self._use_count)
 
 
-def _fixed_rows(tree, slot: int, kind: Optional[str] = None):
-    """Views of ``slot``'s rows of every leaf of a fixed-cache tree (the
+def _fixed_leaves(tree, kind: Optional[str] = None):
+    """``(leaf, batch dim)`` of every leaf of a fixed-cache tree (the
     non-paged leaves: cross-KV and SSM state with the batch dim at -4, conv
-    state at -3), in a fixed order.  The dense family has none."""
+    state at -3), in a fixed order.  The dense and moe families have none."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _fixed_rows(v, slot, _FIXED_KINDS.get(k, kind))
+            yield from _fixed_leaves(v, _FIXED_KINDS.get(k, kind))
     elif isinstance(tree, (tuple, list)):
         for v in tree:
-            yield from _fixed_rows(v, slot, kind)
+            yield from _fixed_leaves(v, kind)
     else:
-        yield tree.select(tree.ndim - (3 if kind == "conv" else 4), slot)
+        yield tree, tree.ndim - (3 if kind == "conv" else 4)
+
+
+def _fixed_rows(tree, slot: int):
+    """Views of ``slot``'s rows of every leaf of a fixed-cache tree."""
+    for leaf, bd in _fixed_leaves(tree):
+        yield leaf.select(bd, slot)
 
 
 class Engine:
@@ -193,10 +207,7 @@ class Engine:
 
     def __init__(self, model: Model, params, cfg: ServeConfig):
         self.device = resolve_device(cfg.device)
-        if model.cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {model.cfg.family!r}: only the dense family is "
-                f"ported (ROADMAP.md queue 1, item 6)")
+        check_ported(model.cfg)
         if cfg.scheduler not in ("continuous", "wave"):
             raise ValueError(f"unknown scheduler {cfg.scheduler!r}; "
                              f"expected 'continuous' or 'wave'")
@@ -282,19 +293,24 @@ class Engine:
     # -- paged KV pool (continuous) -------------------------------------------
     def _ensure_pool(self) -> None:
         """Allocate the paged pool once per engine: one flat token-axis
-        buffer per "self" KV leaf (the dense family has no fixed leaves)."""
+        buffer per "self" KV leaf, with the leaf's leading dims (L, or U and
+        P-1 for the vlm family), and the resident tree of the fixed leaves
+        (the vlm family's cross K/V, (U, max_batch, N_img, KV, hd)) that
+        admission row-scatters into."""
         if self._pools is not None:
             return
         self._alloc = kv_pages.PageAllocator(self._capacity_tokens,
                                              self._page_size)
         self._csched = kv_pages.ContinuousScheduler(self.cfg.max_batch,
                                                     self._alloc)
-        mcfg = self.model.cfg
-        shape = (mcfg.num_layers, self._alloc.num_pages * self._page_size,
-                 mcfg.num_kv_heads, mcfg.resolved_head_dim)
-        dtype = getattr(torch, mcfg.dtype)
-        self._pools = tuple(torch.zeros(shape, dtype=dtype, device=self.device)
-                            for _ in range(2))
+        npp = self._alloc.num_pages * self._page_size
+        template = self.model.init_cache(self.cfg.max_batch, 1,
+                                         device=self.device)
+        self._pools = tuple(
+            torch.zeros(leaf.shape[:-4] + (npp,) + leaf.shape[-2:],
+                        dtype=leaf.dtype, device=self.device)
+            for leaf in template["self"])
+        self._fixed = {k: v for k, v in template.items() if k != "self"}
         self._cur = torch.zeros(self.cfg.max_batch, dtype=torch.int32,
                                 device=self.device)
         if self.cfg.prefix_cache:
@@ -313,6 +329,28 @@ class Engine:
                                           device=self.device)
             self._scratch[plen] = cache
         return cache
+
+    def _scatter_fixed(self, filled, slots: torch.Tensor) -> None:
+        """Copy the admitted ``slots``' rows of a prefill's fixed leaves into
+        the resident tree; other slots keep their live rows."""
+        new = {k: filled[k] for k in self._fixed}
+        for (dst, bd), (src, _) in zip(_fixed_leaves(self._fixed),
+                                       _fixed_leaves(new)):
+            dst.index_copy_(bd, slots, src.index_select(bd, slots))
+
+    def _batch_extras(self, batch, reqs: List[_Request], extra_inputs):
+        """Put each request's rows of ``extra_inputs`` (indexed by
+        ``Request.row``) at its slot of a max_batch prefill batch; other
+        slots get zeros."""
+        if not extra_inputs:
+            return
+        slots = torch.tensor([r.slot for r in reqs], device=self.device)
+        rows = torch.tensor([r.row for r in reqs], device=self.device)
+        for name, arr in extra_inputs.items():
+            arr = torch.as_tensor(arr, device=self.device)
+            padded = arr.new_zeros((self.cfg.max_batch,) + arr.shape[1:])
+            padded[slots] = arr[rows]
+            batch[name] = padded
 
     def _slice_fixed_row(self, slot: int) -> List[torch.Tensor]:
         """Snapshot one slot's rows of every fixed cache leaf: the per-row
@@ -369,14 +407,24 @@ class Engine:
                 f"prompt ({len(prompt)}) + max_new ({max_new}) exceeds "
                 f"max_len ({self.cfg.max_len})")
 
-    def run(self) -> List[api.GenerationResult]:
+    def run(self, extra_inputs: Optional[Dict[str, torch.Tensor]] = None
+            ) -> List[api.GenerationResult]:
         """Drain the queue; results in request-id order.  Re-seeds the
-        sampling generator, so repeated runs give the same samples."""
+        sampling generator, so repeated runs give the same samples.
+
+        ``extra_inputs``: per-request model inputs (``Model.extra_inputs``,
+        e.g. the vlm family's ``image_embeds``), leading dim indexed by each
+        request's ``row``.  The prefix cache is not consulted while they are
+        given: a cached prompt's KV depends on them."""
+        if extra_inputs and any(r.row is None for r in self._queue):
+            raise ValueError(
+                "extra_inputs needs every request submitted with row= "
+                "(its index into the extra arrays); generate() does this")
         self._gen.manual_seed(self.cfg.seed)
         # no_grad is thread-local: entered here, it covers a Server's worker
         with torch.no_grad():
             if self._scheduler == "continuous":
-                drained = self._run_continuous()
+                drained = self._run_continuous(extra_inputs)
             else:
                 drained = []
                 while True:
@@ -384,7 +432,7 @@ class Engine:
                     if not self._queue:
                         break
                     wave = self._pack_wave()
-                    self._run_wave(wave)
+                    self._run_wave(wave, extra_inputs)
                     drained.extend(wave)
         return [r.result for r in sorted(drained, key=lambda r: r.rid)]
 
@@ -396,22 +444,29 @@ class Engine:
         for req, handle in self._ingest_hook():
             self.submit(req, _handle=handle)
 
-    def generate(self, prompts: List[List[int]],
-                 max_new_tokens: int) -> List[List[int]]:
+    def generate(self, prompts: List[List[int]], max_new_tokens: int,
+                 extra_inputs: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> List[List[int]]:
         """Batched generation; more prompts than slots are admitted at chunk
-        boundaries (continuous) or served in successive waves."""
+        boundaries (continuous) or served in successive waves.
+        ``extra_inputs`` arrays have one row per prompt (see :meth:`run`)."""
         if not prompts:
             raise ValueError("generate() needs at least one prompt")
         # the whole batch first: a bad prompt must not leave others queued
         for p in prompts:
             self._check(list(p), max_new_tokens)
+        for name, arr in (extra_inputs or {}).items():
+            if arr.shape[0] != len(prompts):
+                raise ValueError(
+                    f"extra input {name!r} leading dim {arr.shape[0]} != "
+                    f"len(prompts) {len(prompts)}")
         t0 = time.perf_counter()
         handles = [self.submit(api.Request(prompt=list(p),
                                            max_new_tokens=max_new_tokens,
                                            row=i))
                    for i, p in enumerate(prompts)]
         try:
-            self.run()
+            self.run(extra_inputs)
         except Exception:
             ids = {h.request_id for h in handles}
             self._queue = [r for r in self._queue if r.rid not in ids]
@@ -475,7 +530,7 @@ class Engine:
                 i += 1
         return wave
 
-    def _run_wave(self, wave: List[_Request]) -> None:
+    def _run_wave(self, wave: List[_Request], extra_inputs=None) -> None:
         cfg = self.cfg
         need = max(r.max_new for r in wave)    # real token budget (cache need)
         longest = max(len(r.prompt) for r in wave)
@@ -495,7 +550,7 @@ class Engine:
         for r in wave:
             self._sched.admit(r)
         try:
-            self._decode_wave(wave, plen, width, need)
+            self._decode_wave(wave, plen, width, need, extra_inputs)
         except Exception as exc:
             for r in wave:
                 if not r.handle.done:
@@ -507,7 +562,7 @@ class Engine:
                 self._sched.evict(r)
 
     def _decode_wave(self, wave: List[_Request], plen: int, width: int,
-                     need: int) -> None:
+                     need: int, extra_inputs=None) -> None:
         b = self.cfg.max_batch
         # host inputs packed into one array: tokens (b, plen) | kv_start | budget
         packed = np.zeros((b, plen + 2), np.int32)
@@ -519,11 +574,12 @@ class Engine:
             packed[r.slot, plen + 1] = r.max_new
         dev = torch.from_numpy(packed).to(self.device)
         kv_start, budget = dev[:, plen], dev[:, plen + 1]
+        batch = {"tokens": dev[:, :plen], "kv_start": kv_start}
+        self._batch_extras(batch, wave, extra_inputs)
         cache = self._ensure_cache()
         self._plen_buckets.add(plen)
         t0 = time.perf_counter()
-        logits0, cache = self.model.prefill(
-            self.params, {"tokens": dev[:, :plen], "kv_start": kv_start}, cache)
+        logits0, cache = self.model.prefill(self.params, batch, cache)
         self._sync_if_profiling()
         t1 = time.perf_counter()
         cur = self._sample(logits0)
@@ -563,7 +619,7 @@ class Engine:
                                  or api.FINISH_LENGTH, now)
 
     # -- continuous drain: admit/evict at chunk boundaries ----------------------
-    def _run_continuous(self) -> List[_Request]:
+    def _run_continuous(self, extra_inputs=None) -> List[_Request]:
         self._ensure_pool()
         finished: List[_Request] = []
         active: Dict[int, _Request] = {}        # slot -> request
@@ -573,7 +629,7 @@ class Engine:
                 if not (self._queue or active):
                     break
                 if self._queue:
-                    self._admit_batch(active)
+                    self._admit_batch(active, extra_inputs)
                 preempted = self._csched.ensure_chunk_pages(self._chunk)
                 # Requeue victims at the queue front, smallest rid first,
                 # with their tokens discarded: greedy decode makes the
@@ -621,7 +677,8 @@ class Engine:
             raise
         return finished
 
-    def _admit_batch(self, active: Dict[int, _Request]) -> None:
+    def _admit_batch(self, active: Dict[int, _Request],
+                     extra_inputs=None) -> None:
         """Admit every queue-head request that fits (slot + prompt pages),
         consult the prefix cache for each, restore full hits without
         prefill, and prefill the rest in ONE batched ragged call over all
@@ -636,10 +693,13 @@ class Engine:
         busy slot frees itself at the next boundary, so it evicts nothing);
         partial hits re-run prefill with the shared columns' writes sent to
         TRASH; every prefilled prompt is inserted while its pages are live.
+        With ``extra_inputs`` the cache is neither consulted nor filled.
+        The admitted rows of the prefill's fixed leaves (cross K/V) are
+        copied to their slots of the resident tree.
         """
         admitted: List[_Request] = []
         hits = []                       # (req, RowState, cache entry)
-        caching = self._prefix is not None
+        caching = self._prefix is not None and not extra_inputs
         while self._queue:
             nxt = self._queue[0]
             m = self._prefix.match(nxt.prompt) if caching else None
@@ -694,6 +754,7 @@ class Engine:
                 pages[logical // page] * page + logical % page)
         dev = torch.from_numpy(packed).to(self.device)
         batch = {"tokens": dev[:, :plen], "kv_start": dev[:, plen]}
+        self._batch_extras(batch, admitted, extra_inputs)
         scratch = self._scratch_cache(plen)
         self._plen_buckets.add(plen)
         t0 = time.perf_counter()
@@ -703,6 +764,8 @@ class Engine:
             paged_scatter(pool, dest_t, src)
         slots = torch.tensor([r.slot for r in admitted], dtype=torch.long,
                              device=self.device)
+        if self._fixed:
+            self._scatter_fixed(filled, slots)
         self._cur[slots] = self._sample(logits0)[slots]
         self._sync_if_profiling()
         self._stats["prefill_seconds"] += time.perf_counter() - t0
@@ -760,7 +823,8 @@ class Engine:
         gidx = dev[:, :width]
         kv_start = dev[:, width].to(torch.int32)
         budget = dev[:, width + 1].to(torch.int32)
-        cache = {"self": tuple(paged_gather(pool, gidx) for pool in self._pools)}
+        cache = dict(self._fixed)
+        cache["self"] = tuple(paged_gather(pool, gidx) for pool in self._pools)
         cur = self._cur
         done = budget <= 0                      # empty slots start finished
         buf = torch.zeros((b, chunk), dtype=torch.int32, device=self.device)
@@ -782,7 +846,8 @@ class Engine:
             offset += 1
         sidx_t = torch.from_numpy(sidx)
         for pool, leaf in zip(self._pools, cache["self"]):
-            paged_scatter(pool, sidx_t, leaf[:, :, width - chunk:])
+            paged_scatter(pool, sidx_t,
+                          leaf.narrow(leaf.ndim - 3, width - chunk, chunk))
         self._cur = cur
         # The ONE device-to-host transfer of this chunk.
         host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()

@@ -7,7 +7,7 @@ trades speed for the simplest possible trust chain.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -21,14 +21,20 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
 
 def generate_per_prompt(model: Model, params, prompts: List[List[int]],
                         max_new_tokens: int, max_len: int = 512,
-                        eos_token: Optional[int] = None) -> List[List[int]]:
-    """Greedy generation, one prompt at a time, on the params' device."""
+                        eos_token: Optional[int] = None,
+                        extra_inputs: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> List[List[int]]:
+    """Greedy generation, one prompt at a time, on the params' device;
+    prompt ``i`` takes row ``i`` of each ``extra_inputs`` array."""
     device = params["embedding"].device
     outs = []
-    for prompt in prompts:
-        tokens = torch.tensor([list(prompt)], dtype=torch.int32, device=device)
+    for i, prompt in enumerate(prompts):
+        batch = {"tokens": torch.tensor([list(prompt)], dtype=torch.int32,
+                                        device=device)}
+        for name, arr in (extra_inputs or {}).items():
+            batch[name] = arr[i:i + 1]
         cache = model.init_cache(1, max_len, device=device)
-        logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+        logits, cache = model.prefill(params, batch, cache)
         offset = len(prompt)
         cur = greedy(logits)
         toks: List[int] = []

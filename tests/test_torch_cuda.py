@@ -188,6 +188,7 @@ WGMMA_FLASH = [
     (3, 37, 37, 32, 8, 64, [0, 1, 36], None),
     (4, 200, 200, 32, 8, 64, [0, 129, 63, 200], 1024),       # cache views
     (2, 300, 300, 8, 1, 128, [17, 0], 1024),
+    (8, 256, 256, 16, 16, 128, [0, 17, 100, 255, 256, 3, 64, 200], None),  # olmoe
 ] + [(4, n, n, 32, 8, 64, [0, n // 3, n - 1, n], 1024)       # engine buckets
      for n in (8, 16, 32, 64, 128, 512)]
 
@@ -422,3 +423,185 @@ def test_cuda_wave_bf16_goes_through_decode_and_wgmma(cuda):
     assert flash["wgmma"] > 0 and flash["fma"] == 0, flash
     st = eng.stats()
     assert st["waves"] == 2 and st["device_transfers"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the moe family
+# ---------------------------------------------------------------------------
+
+def _moe_reduced(**kw):
+    import dataclasses
+
+    from repro_torch.configs.catalog import get_config
+    return dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
+                               attention_impl="flash", **kw)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_cuda_flash_f32_group1_d128_matches_plain_version(cuda):
+    """The float32 pass of olmoe runs the fma kernel at head dim 128 with
+    16 query heads over 16 KV heads, ragged."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(4, 130, 16, 128, generator=gen, device=cuda)
+               for _ in range(3))
+    kv_start = torch.tensor([0, 7, 129, 130], dtype=torch.int32, device=cuda)
+    tile = flash_tiles(torch.float32, 130, 130, 128)
+    got = flash_attention_cuda(q, k, v, config=tile, kv_start=kv_start)
+    want = ref.flash_attention_ref(q, k, v, kv_start=kv_start)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_cuda_expert_einsum_bf16_is_f32_without_weight_copies(cuda):
+    """The expert products of bf16 operands return f32 equal to the upcast
+    product (summation order only), and allocate no f32 copy of the
+    (E, D, F) stack: the peak grows by the outputs, not by 2 x the stack."""
+    from repro_torch.core import einsum
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    e, b, c, d, f = 64, 8, 8, 2048, 1024
+    buf = torch.randn(e, b, c, d, generator=gen, device=cuda).bfloat16()
+    w = (torch.randn(e, d, f, generator=gen, device=cuda) * d ** -0.5).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = einsum("ebcd,edf->ebcf", buf, w)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert got.dtype == torch.float32 and tuple(got.shape) == (e, b, c, f)
+    assert grown < w.numel() * 4 // 4, grown       # f32 copy: 4 B an element
+    want = torch.einsum("ebcd,edf->ebcf", buf.float(), w.float())
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_moe_layer_matches_cpu(cuda):
+    """One MoE layer at olmoe's expert count and top-k (64, 8), float32:
+    the card's routing equals the CPU's bit for bit on the same logits, and
+    the layer's output matches the CPU's."""
+    from repro_torch.core import matmul
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    tpl = moe.moe_template(256, 128, 64)
+    cpu = init_params(tpl, seed=2, device="cpu")
+    card = _to(cpu, cuda)
+    x = torch.randn(4, 50, 256, generator=torch.Generator().manual_seed(0))
+    kw = dict(top_k=8, num_experts=64, capacity_factor=1.25)
+    logits = matmul(x.to(cuda), card["router"])
+    cap = moe.capacity(50, 64, 8, 1.25)
+    _, r_card = moe._route_group(x.to(cuda), logits, top_k=8, num_experts=64,
+                                 cap=cap)
+    _, r_cpu = moe._route_group(x, logits.cpu(), top_k=8, num_experts=64,
+                                cap=cap)
+    for got, want in zip(r_card[:3], r_cpu[:3]):
+        assert torch.equal(got.cpu(), want)
+    torch.testing.assert_close(r_card[3].cpu(), r_cpu[3], atol=1e-6, rtol=1e-6)
+    got, aux = moe.moe_layer(card, x.to(cuda), **kw)
+    want, aux_cpu = moe.moe_layer(cpu, x, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, **F32)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, **F32)
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "wave"])
+def test_cuda_moe_engine_matches_cpu(cuda, scheduler):
+    """Reduced olmoe in float32: the engine on the card gives the tokens the
+    same engine gives on the CPU, one host transfer per chunk or wave."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    model = build_model(_moe_reduced())
+    cpu = model.init(1, device="cpu")
+    prompts = [[5, 9, 2, 7], [1, 3, 3], [(i * 7 + 3) % 256 for i in range(37)]]
+    outs = []
+    for params, dev in ((cpu, "cpu"), (_to(cpu, cuda), None)):
+        eng = Engine(model, params, ServeConfig(max_batch=2, max_len=128,
+                                                device=dev,
+                                                scheduler=scheduler))
+        outs.append(eng.generate(prompts, 6))
+        st = eng.stats()
+        assert st["device_transfers"] == st["chunks"] + st["waves"]
+    assert outs[1] == outs[0]
+
+
+def test_cuda_moe_engine_bf16_goes_through_decode_and_wgmma(cuda):
+    """Reduced olmoe in bf16 at olmoe's head dim (128) and group (1): every
+    GEMM (router included) runs the decode or the wgmma kernel, every
+    prefill attention the wgmma flash kernel."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    model = build_model(_moe_reduced(dtype="bfloat16", head_dim=128,
+                                     num_heads=2, num_kv_heads=2))
+    params = model.init(1, device=cuda)
+    prompts = [[(i * 7 + 3) % 256 for i in range(n)] for n in (37, 5, 64)]
+    eng = Engine(model, params, ServeConfig(max_batch=2, max_len=128))
+    kernels.reset_launch_counts()
+    eng.generate(prompts, 4)
+    paths = kernels.gemm_launches_by_path()
+    flash = kernels.flash_launches_by_path()
+    assert paths["decode"] > 0 and paths["wgmma"] > 0, paths
+    assert paths["wmma"] == 0 and paths["fma"] == 0, paths
+    assert flash["wgmma"] > 0 and flash["fma"] == 0, flash
+
+
+# ---------------------------------------------------------------------------
+# the vlm family
+# ---------------------------------------------------------------------------
+
+def _vlm_reduced(**kw):
+    import dataclasses
+
+    from repro_torch.configs.catalog import get_config
+    return dataclasses.replace(get_config("llama-3.2-vision-11b").reduced(),
+                               attention_impl="flash", **kw)
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "wave"])
+def test_cuda_vlm_engine_matches_cpu(cuda, scheduler):
+    """Reduced llama-3.2-vision in float32 with per-request image
+    embeddings: the engine on the card gives the CPU engine's tokens."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    model = build_model(_vlm_reduced())
+    cpu = model.init(1, device="cpu")
+    prompts = [[5, 9, 2, 7], [1, 3, 3], [(i * 7 + 3) % 256 for i in range(37)]]
+    spec = model.extra_inputs(len(prompts))["image_embeds"]
+    img = torch.randn(spec.shape, generator=torch.Generator().manual_seed(0))
+    outs = []
+    for params, dev in ((cpu, "cpu"), (_to(cpu, cuda), None)):
+        eng = Engine(model, params, ServeConfig(max_batch=2, max_len=128,
+                                                device=dev,
+                                                scheduler=scheduler))
+        outs.append(eng.generate(prompts, 6, extra_inputs={
+            "image_embeds": img.to(eng.device)}))
+        st = eng.stats()
+        assert st["device_transfers"] == st["chunks"] + st["waves"]
+    assert outs[1] == outs[0]
+
+
+def test_cuda_vlm_engine_bf16_goes_through_decode_and_wgmma(cuda):
+    """Reduced llama-3.2-vision in bf16 at its head dim (128) and group
+    (4): every GEMM (the cross K/V projection included) runs the decode or
+    the wgmma kernel, every prefill self-attention the wgmma flash
+    kernel."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    model = build_model(_vlm_reduced(dtype="bfloat16", head_dim=128,
+                                     num_heads=8, num_kv_heads=2))
+    params = model.init(1, device=cuda)
+    prompts = [[(i * 7 + 3) % 256 for i in range(n)] for n in (37, 5, 64)]
+    spec = model.extra_inputs(len(prompts))["image_embeds"]
+    img = torch.randn(spec.shape, device=cuda).to(spec.dtype)
+    eng = Engine(model, params, ServeConfig(max_batch=2, max_len=128))
+    kernels.reset_launch_counts()
+    eng.generate(prompts, 4, extra_inputs={"image_embeds": img})
+    paths = kernels.gemm_launches_by_path()
+    flash = kernels.flash_launches_by_path()
+    assert paths["decode"] > 0 and paths["wgmma"] > 0, paths
+    assert paths["wmma"] == 0 and paths["fma"] == 0, paths
+    assert flash["wgmma"] > 0 and flash["fma"] == 0, flash

@@ -44,6 +44,27 @@ def test_bridge_copies_every_leaf_bit_exactly(dtype):
             np.testing.assert_array_equal(got.numpy(), ref, err_msg=path)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama-3.2-vision-11b"])
+def test_bridge_copies_moe_and_vlm_trees_bit_exactly(arch, dtype):
+    """Every leaf of the MoE tree (expert stacks (L, E, D, F), router) and
+    of the VLM tree (units of (U, P-1, ...) self layers, cross layers)
+    crosses bit for bit."""
+    cfg = dataclasses.replace(ARCHITECTURES[arch].reduced(), dtype=dtype)
+    jparams = jax_build_model(cfg).init(jax.random.PRNGKey(1))
+    jflat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+             for path, v in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    tflat = _flat(params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu"))
+    assert set(jflat) == set(tflat)
+    for path, ref in jflat.items():
+        got = tflat[path]
+        assert got.dtype == getattr(torch, dtype), path
+        assert tuple(got.shape) == ref.shape, path
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      ref.astype(np.float32), err_msg=path)
+
+
 def test_bridge_takes_uint16_views_of_bf16():
     x = np.array([1.0, -2.5, 3.140625], np.float32)
     bits = (x.view(np.uint32) >> 16).astype(np.uint16)   # exact in bf16
@@ -53,9 +74,12 @@ def test_bridge_takes_uint16_views_of_bf16():
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "chatglm3-6b",
-                                  "stablelm-12b", "yi-9b"])
+                                  "stablelm-12b", "yi-9b", "olmoe-1b-7b",
+                                  "moonshot-v1-16b-a3b",
+                                  "llama-3.2-vision-11b"])
 def test_template_matches_the_reference(arch):
-    """Dense configs: same tree, shapes, init rules and scales as JAX."""
+    """Dense, MoE and VLM configs: same tree, shapes, init rules and scales
+    as JAX."""
     jt = jax_build_model(ARCHITECTURES[arch].reduced()).template
     jflat = {"/".join(str(getattr(k, "key", k)) for k in path): spec
              for path, spec in jax.tree_util.tree_flatten_with_path(
@@ -87,7 +111,6 @@ def test_init_is_seeded_and_at_reference_scales():
 
 
 def test_build_model_refuses_unported_families():
-    for arch in ("mamba2-130m", "olmoe-1b-7b", "whisper-large-v3",
-                 "llama-3.2-vision-11b", "zamba2-2.7b"):
+    for arch in ("mamba2-130m", "whisper-large-v3", "zamba2-2.7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(PORT_ARCHS[arch].reduced())

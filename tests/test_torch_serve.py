@@ -139,15 +139,16 @@ def test_eos_stops_a_row(jax_params, oracle):
 
 
 def test_engine_rejects_what_is_not_ported(jax_params):
-    """Sampling, the prefix cache, the wave scheduler and the int8 cache are
-    ported; a non-dense family is not, by the factory or by the Engine."""
+    """Sampling, the prefix cache, the wave scheduler, the int8 cache and the
+    moe family are ported; the ssm family is not, by the factory or by the
+    Engine."""
     from repro_torch.models.model import Model
     model, params, _ = _port("chunked", jax_params)
-    moe = PORT_ARCHS["olmoe-1b-7b"].reduced()
+    ssm = PORT_ARCHS["mamba2-130m"].reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(moe)
+        build_model(ssm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(Model(cfg=moe, template=model.template), params,
+        Engine(Model(cfg=ssm, template=model.template), params,
                ServeConfig(device="cpu"))
     eng = Engine(model, params, ServeConfig(max_len=16, device="cpu"))
     for bad in (Request(prompt=[], max_new_tokens=2),
