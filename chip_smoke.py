@@ -72,6 +72,25 @@ Phases, each printing one JSON line:
    not consulted with extra inputs: no hit), finite logits of one batched
    prefill, and a float32 pass at full width and one unit (5 layers)
    whose tokens must equal the per-prompt oracle's.
+8. ``serve_stablelm`` — stablelm-12b at full width (d 5120, 32 / 8 heads
+   at head dim 160, vocab 100352) and 2 layers in bf16 with flash prefill:
+   the serve phase's 12 requests, 8 new tokens each, with the launch counts
+   set to 0 before (every GEMM on decode or wgmma, every prefill attention
+   on the wgmma flash kernel at d 160); then a float32 pass (2 layers)
+   whose continuous and wave tokens must equal the per-prompt oracle's.
+9. ``serve_audio`` — full-width whisper-large-v3 (32 encoder + 32 decoder
+   layers, d 1280, 20 heads at head dim 64, untied K-major head over 51866
+   tokens) in bf16 with seeded random frame embeddings (1500 a request,
+   ``extra_inputs``): the same three traffics and checks as serve_moe (the
+   prefix cache is not consulted with extra inputs), finite logits of one
+   batched prefill, the encoder's share of a prefill's device time, and a
+   float32 pass at full width and 2 + 2 layers whose tokens must equal the
+   per-prompt oracle's.
+
+The kernels phase also holds whisper's shapes (d 1280 projections with
+biases and the GELU MLP at M = 8, 8 x 256 and the encoder's 8 x 1500, the
+unembed at N = 51866) and K2 at (8, 256, 20, 20, 64), stablelm-12b's (8,
+256, 32, 8, 160) and zamba2-2.7b's head dim 80, (8, 256, 32, 32, 80).
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -181,7 +200,8 @@ def bound(flops: float, nbytes: float, dtype: str):
 
 def gemm_cases(torch):
     """(label, M, K, N, dtype, b_transposed, activation, out_dtype, extras,
-    main_path).  The main path's shapes first, each once; then the edges of
+    main_path).  ``extras``: True adds C, a bias, alpha and beta; "bias" a
+    bias alone.  The main path's shapes first, each once; then the edges of
     the decode and wgmma paths and the WMMA / FMA kernels."""
     d, kvd, ff, vocab = 2048, 512, 8192, 128256
     bf, f32 = torch.bfloat16, torch.float32
@@ -219,6 +239,22 @@ def gemm_cases(torch):
                   f32, False, True))
     cases.append(("vlm prefill cross k/v (8 x 1601 image tokens)", 8 * 1601,
                   dv, kvv, bf, False, None, bf, False, True))
+    # whisper-large-v3 (serve_audio): d = 1280 MHA projections with biases,
+    # the GELU MLP (5120) with biases at decode, decoder prefill and the
+    # encoder's 8 x 1500 frames (its q / k / v / o shape is also the cross
+    # K / V projection's); the untied unembed, K-major, at N = 51866
+    dw, ffw = 1280, 5120
+    wproj = [("q/k/v/o +bias", dw, dw, None), ("up +bias+gelu", dw, ffw, "gelu"),
+             ("down +bias", ffw, dw, None)]
+    for m, phase in ((8, "decode"), (8 * 256, "prefill"),
+                     (8 * 1500, "encoder")):
+        for name, k, n, act in wproj:
+            cases.append((f"whisper {phase} {name}", m, k, n, bf, False, act,
+                          bf, "bias", True))
+    cases.append(("whisper unembed (K-major, N = 51866, f32 out)", 8, dw,
+                  51866, bf, True, None, f32, False, True))
+    cases.append(("whisper edge unembed at prefill M (K-major, N = 51866)",
+                  8 * 256, dw, 51866, bf, True, None, f32, False, False))
     for (name, k, n) in (("k/v", d, kvd), ("down", ff, d)):
         for m in (1, 3, 8, 16):
             cases.append((f"decode edge {name} M={m} silu", m, k, n, bf,
@@ -265,9 +301,10 @@ def run_gemm_case(torch, timers, case, gen):
     kw = dict(activation=act, out_dtype=out_dtype)
     c = None
     if extras:
+        kw.update(bias=torch.randn(n, generator=gen, device="cuda"))
+    if extras is True:
         c = torch.randn(m, n, generator=gen, device="cuda")
-        kw.update(alpha=0.5, beta=0.25,
-                  bias=torch.randn(n, generator=gen, device="cuda"))
+        kw.update(alpha=0.5, beta=0.25)
     tile = gemm_tiles(dtype, m, k, n)
     before = dict(gemm_cuda.launches_by_path)
     out = gemm_cuda(a, b, c, config=tile, **kw)
@@ -285,7 +322,7 @@ def run_gemm_case(torch, timers, case, gen):
     in_bytes = a.element_size()
     nbytes = (m * k + k * n) * in_bytes + m * n * out.element_size()
     if extras:
-        nbytes += m * n * 4 + n * 4
+        nbytes += n * 4 + (m * n * 4 if c is not None else 0)
     b_ms, b_by = bound(2.0 * m * n * k, nbytes, str(dtype).split(".")[1])
     timer, device_timer = timers
     kernel = lambda: gemm_cuda(a, b, c, config=tile, **kw)
@@ -311,7 +348,10 @@ def run_gemm_case(torch, timers, case, gen):
 def model_of(label: str) -> str:
     """The model whose serve path gives a kernels-phase case its shape."""
     for prefix, model in (("olmoe", "olmoe-1b-7b"),
-                          ("vlm", "llama-3.2-vision-11b")):
+                          ("vlm", "llama-3.2-vision-11b"),
+                          ("whisper", "whisper-large-v3"),
+                          ("stablelm", "stablelm-12b"),
+                          ("zamba", "zamba2-2.7b")):
         if label.startswith(prefix):
             return model
     return "llama3.2-1b"
@@ -344,8 +384,11 @@ def decode_batch_invariance(torch, gen):
 def flash_cases():
     """(label, B, S, Skv, H, KV, d, dtype, kv_start, main_path).  The main
     paths' prefill shapes first (llama3.2-1b; olmoe-1b-7b: MHA, group 1,
-    d = 128; llama-3.2-vision-11b: group 4, d = 128); the two long prompts are not on a serve path (its prompts
-    are at most 300 tokens)."""
+    d = 128; llama-3.2-vision-11b: group 4, d = 128; whisper-large-v3's
+    decoder: group 1, d = 64; stablelm-12b: group 4, d = 160); zamba2-2.7b's
+    d = 80 (hybrid, not served yet), the f32 kernel at d = 160 and the two
+    long prompts are not on a serve path (its prompts are at most 300
+    tokens)."""
     ragged = [0, 17, 100, 255, 256, 3, 64, 200]     # 256: fully masked row
     return [
         ("prefill (8,256,32,64) ragged + fully masked row", 8, 256, 256, 32, 8,
@@ -354,6 +397,14 @@ def flash_cases():
          256, 16, 16, 128, "bfloat16", ragged, True),
         ("vlm prefill (8,256,32,8,128) ragged + fully masked row", 8, 256,
          256, 32, 8, 128, "bfloat16", ragged, True),
+        ("whisper prefill (8,256,20,20,64) ragged + fully masked row", 8,
+         256, 256, 20, 20, 64, "bfloat16", ragged, True),
+        ("stablelm prefill (8,256,32,8,160) ragged + fully masked row", 8,
+         256, 256, 32, 8, 160, "bfloat16", ragged, True),
+        ("zamba d 80 (8,256,32,32,80) ragged + fully masked row", 8, 256,
+         256, 32, 32, 80, "bfloat16", ragged, False),
+        ("f32 d 160 (4,300,32,8,160) ragged", 4, 300, 300, 32, 8, 160,
+         "float32", [0, 7, 150, 300], False),
         ("non-divisible S=200 + fully masked row", 8, 200, 200, 32, 8, 64,
          "bfloat16", [0, 5, 199, 200, 1, 63, 64, 150], False),
         ("causal S=100 < Skv=256", 2, 100, 256, 32, 8, 64, "bfloat16", [0, 40],
@@ -1003,6 +1054,10 @@ def serve_runs(torch, out, model, params, prompts, cold, warm, extra=None):
                        for o in got)
             toks.append(got)
             res.setdefault("walls", []).append(wall)
+            res.setdefault("decode_tok_per_s_by_run", []).append(
+                st["tokens_generated"] / st["decode_seconds"])
+            res.setdefault("prefill_tok_per_s_by_run", []).append(
+                prompt_toks / st["prefill_seconds"])
             if rep == 0:
                 res.update(
                     wall_seconds=wall, prefill_seconds=st["prefill_seconds"],
@@ -1138,6 +1193,130 @@ def phase_serve_vlm(torch, ctx):
     return out
 
 
+def phase_serve_stablelm(torch, ctx):
+    """stablelm-12b at full width (head dim 160) and 2 layers in bf16 with
+    flash prefill: the 12 requests, 8 new tokens each, through the decode /
+    wgmma GEMMs and the wgmma flash kernel at d 160; then a float32 pass (2
+    layers) equal to the per-prompt oracle."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    ctx.clear()
+    free_card(torch)
+    cfg = dataclasses.replace(get_config("stablelm-12b"), dtype="bfloat16",
+                              attention_impl="flash", num_layers=2)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(5, 301, size=12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    eng = Engine(model, params, ServeConfig(max_batch=8, max_len=1024,
+                                            decode_chunk=8, profile=True))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, 8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gemm = kernels.gemm_launches_by_path()
+    flash = kernels.flash_launches_by_path()
+    st = eng.stats()
+    assert all(len(o) == 8 and all(0 <= t < cfg.vocab_size for t in o)
+               for o in outs)
+    assert gemm["decode"] > 0 and gemm["wgmma"] > 0, gemm
+    assert gemm["wmma"] == 0 and gemm["fma"] == 0, gemm
+    assert flash["wgmma"] > 0 and flash["fma"] == 0, flash
+    assert st["device_transfers"] == st["chunks"], st
+    out = {"phase": "serve_stablelm", "card": torch.cuda.get_device_name(0),
+           "model": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "head_dim": cfg.resolved_head_dim, "params": model.param_count(),
+           "continuous": {
+               "wall_seconds": wall, "prefill_seconds": st["prefill_seconds"],
+               "decode_seconds": st["decode_seconds"],
+               "prefill_tok_per_s": float(lens.sum()) / st["prefill_seconds"],
+               "gemm_launches_by_path": gemm, "flash_launches_by_path": flash,
+               "launches": kernels.launch_counts()}}
+    finite_prefill(torch, model, params, prompts[:8])
+    del eng, params
+    free_card(torch)
+    out["f32_pass"] = f32_exactness(torch, dataclasses.replace(
+        cfg, dtype="float32"), rng)
+    emit(out)
+    return out
+
+
+def encoder_embeds(torch, cfg, n: int, seed: int, dtype):
+    """Seeded random frame embeddings (n, enc_len, D), drawn on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return {"encoder_embeds": torch.randn(
+        n, cfg.encoder_len, cfg.d_model, generator=gen,
+        device="cuda").to(dtype)}
+
+
+def encoder_share(torch, model, params, batch):
+    """Device time of the encoder over ``batch``'s frames against that of
+    the whole batched prefill (encoder, cross K/V, decoder, unembed): each
+    the mean of 3 runs after one warm-up, timed with CUDA events."""
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+
+    def timed(fn):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 3
+
+    cache = model.init_cache(batch["tokens"].shape[0],
+                             batch["tokens"].shape[1], device="cuda")
+    with torch.no_grad():
+        enc_ms = timed(lambda: T._run_encoder(cfg, params,
+                                              batch["encoder_embeds"]))
+        prefill_ms = timed(lambda: model.prefill(params, batch, cache))
+    return {"encoder_ms": enc_ms, "prefill_ms": prefill_ms,
+            "encoder_share": enc_ms / prefill_ms,
+            "plen": int(batch["tokens"].shape[1])}
+
+
+def phase_serve_audio(torch, ctx):
+    """Full-width whisper-large-v3 (32 + 32 layers, 20 heads at d = 64, the
+    K-major head at N = 51866) in bf16 with flash prefill and seeded random
+    frame embeddings through ``serve_runs`` (the prefix cache is not
+    consulted with extra inputs); the encoder's share of a batched
+    prefill; then a float32 pass at full width and 2 + 2 layers."""
+    import dataclasses
+
+    out, cfg, model, params, prompts, cold, warm, rng = family_phase_setup(
+        torch, ctx, "whisper-large-v3")
+    out = {"phase": "serve_audio", **out}
+    extra = encoder_embeds(torch, cfg, 12, 0, torch.bfloat16)
+    serve_runs(torch, out, model, params, prompts, cold, warm, extra)
+    batch = finite_prefill(torch, model, params, prompts[:8],
+                           {k: v[:8] for k, v in extra.items()})
+    out["encoder_share_of_prefill"] = encoder_share(torch, model, params,
+                                                    batch)
+    del params, extra, batch
+    free_card(torch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=2,
+                                encoder_layers=2)
+    out["f32_pass"] = f32_exactness(
+        torch, cfg32, rng,
+        lambda n: encoder_embeds(torch, cfg32, n, 1, torch.float32))
+    emit(out)
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1161,11 +1340,11 @@ def summarize(rows, launches, paths, features, families):
     """One entry per kernel: its main-path cases summed (each model's shapes
     once; ``by_model`` splits the sums), and the same sums per path with the
     serve phase's launches by path.  ``launches`` sums the main-path runs of
-    every model (the serve phase, and the continuous run of serve_moe and
-    serve_vlm, each with the counts set to 0 before it);
-    ``launches_by_run`` splits it, and ``launches_by_pass`` has the
-    launches by path of every serve_features, serve_moe and serve_vlm
-    run."""
+    every model (the serve phase, and the continuous run of serve_moe,
+    serve_vlm, serve_stablelm and serve_audio, each with the counts set to
+    0 before it); ``launches_by_run`` splits it, and ``launches_by_pass``
+    has the launches by path of every serve_features, serve_moe,
+    serve_vlm, serve_stablelm and serve_audio run."""
     out = []
     family_runs = {f"{fam['phase']} {k}": v for fam in families
                    for k, v in fam.items()
@@ -1227,7 +1406,8 @@ def main(argv=None) -> int:
     rows = phase_kernels(torch, args.out)
     launches, paths, ctx = phase_serve(torch)
     features = phase_serve_features(torch, ctx)
-    families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx)]
+    families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx),
+                phase_serve_stablelm(torch, ctx), phase_serve_audio(torch, ctx)]
     print(card, flush=True)
     emit({"kernels": summarize(rows, launches, paths, features, families)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

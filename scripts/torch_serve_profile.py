@@ -7,8 +7,9 @@
 
 Serves the same workload as ``chip_smoke.py``'s serve phase (full-width
 llama3.2-1b in bf16, flash prefill, 12 seeded requests, 8 slots,
-``max_new=32``; ``--arch olmoe-1b-7b`` or ``llama-3.2-vision-11b`` serves
-that model on it, the latter with seeded random image embeddings) once
+``max_new=32``; ``--arch olmoe-1b-7b``, ``llama-3.2-vision-11b`` or
+``whisper-large-v3`` serves that model on it, the last two with seeded
+random image or frame embeddings) once
 to warm up, ``--walls`` times unprofiled, then once
 under ``torch.profiler``.  ``--scheduler wave`` serves it on the wave
 scheduler, ``--kv-int8`` with an int8 KV cache (which runs the wave
@@ -111,7 +112,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
                for n in rng.integers(5, 301, size=12)]
-    # extra inputs (the vlm family's image embeddings): seeded, on the card
+    # extra inputs (vlm image or audio frame embeddings): seeded, on the card
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     extra = {k: torch.randn(spec.shape, generator=gen, device="cuda").to(

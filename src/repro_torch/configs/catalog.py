@@ -1,13 +1,14 @@
 """Architecture catalog: ``--arch <id>`` resolves here.
 
 The same ten configurations as the JAX package's catalog.  The ``dense``,
-``moe`` and ``vlm`` families have a model path in the port so far;
-``build_model`` refuses the others (see ``repro_torch.models.model``).
+``moe``, ``vlm`` and ``audio`` families have a model path in the port so
+far; ``build_model`` refuses the others (see ``repro_torch.models.model``).
 """
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.llama3_2_1b import CONFIG as _llama1b
 from repro_torch.configs.llama_3_2_vision_11b import CONFIG as _vlm
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
+from repro_torch.configs.whisper_large_v3 import CONFIG as _whisper
 
 _moonshot = ModelConfig(
     name="moonshot-v1-16b-a3b", family="moe",
@@ -37,13 +38,6 @@ _mamba = ModelConfig(
     vocab_size=50280, use_rope=False,
     ssm_state=128, ssm_expand=2, ssm_head_dim=64, ssm_chunk=128,
     tie_embeddings=True,
-)
-_whisper = ModelConfig(
-    name="whisper-large-v3", family="audio",
-    num_layers=32, encoder_layers=32, encoder_len=1500,
-    d_model=1280, num_heads=20, num_kv_heads=20,
-    d_ff=5120, vocab_size=51866, norm="layernorm",
-    use_rope=False, learned_positions=32768,
 )
 _zamba = ModelConfig(
     name="zamba2-2.7b", family="hybrid",

@@ -120,7 +120,9 @@ DECODE_TARGET_BLOCKS = 256
 #: largest S, tile), first match.  bf16 runs the ``wgmma`` kernel: at d = 64
 #: one consumer warpgroup a block (64 rows), four blocks an SM with 64-column
 #: KV tiles up to 1024 query positions and three with 128-column tiles
-#: beyond; at d = 128 two warpgroups a block (128 rows).  f32, and bf16
+#: beyond; at d = 80 and 128 two warpgroups a block (128 rows); at d = 160
+#: two warpgroups with 64-column KV tiles (with 128-column ones the tiles
+#: exceed shared memory there).  f32, and bf16
 #: operands the wgmma kernel does not take (the wrapper decides before the
 #: launch), run ``fma`` with the float32 rows.  Set from
 #: ``scripts/torch_flash_sweep.py`` on an H100 SXM at 700 W.
@@ -128,7 +130,8 @@ H100_FLASH_TILES = {
     torch.bfloat16: (
         (64, 1024, FlashAttentionConfig(64, 64, kernel="wgmma", stages=2)),
         (64, None, FlashAttentionConfig(64, 128, kernel="wgmma", stages=2)),
-        (None, None, FlashAttentionConfig(128, 128, kernel="wgmma", stages=2)),
+        (128, None, FlashAttentionConfig(128, 128, kernel="wgmma", stages=2)),
+        (None, None, FlashAttentionConfig(128, 64, kernel="wgmma", stages=2)),
     ),
     torch.float32: (
         (None, 32, FlashAttentionConfig(32, 64)),

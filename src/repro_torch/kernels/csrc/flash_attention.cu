@@ -13,7 +13,7 @@
 // template arguments chosen by the port's tile table and passed at launch.
 // Two kernels, chosen by the wrapper from the operands before the launch:
 //
-//  * wgmma (flash_fwd_wgmma_kernel): bf16, d in {64, 128}.  Bound by
+//  * wgmma (flash_fwd_wgmma_kernel): bf16, d in {64, 80, 128, 160}.  Bound by
 //    operations at prompt lengths (4 d FLOP per unmasked (query, key) pair:
 //    68.7 GFLOP, 0.069 ms at 989 TFLOP/s, for a 4096-token causal prompt
 //    at llama3.2-1b's width) and by bytes at the serving path's 256-token
@@ -49,6 +49,12 @@
 //    - Epilogue: divide by l (by 1 where l == 0), round to bf16, stage in
 //      the warpgroup's drained rows of the Q tile in the swizzled layout,
 //      one TMA store per 64 columns (rows past S are not written).
+//    - Head dims that are not a multiple of 64 (80: zamba2-2.7b; 160:
+//      stablelm-12b) round the tiles up to whole 64-column blocks (128 and
+//      192).  TMA fills the columns past d with zeros, QK^T runs its k16
+//      steps over d only, O += P V runs at the padded width (its extra
+//      columns are 0), and the TMA store of O clips at d.  The padding
+//      costs PV 60% more work at d = 80 and 20% at d = 160.
 //    - No atomics: two launches give equal bits.
 //  * fma (flash_fwd_kernel): f32 (the exactness pass), and bf16 operands the
 //    wgmma kernel does not take.  One block of 256 threads per (batch *
@@ -69,6 +75,11 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskedBelow = -1e28f;
 constexpr int kThreads = 256;
+// Hopper's shared memory: at most 227 KB a block (opt-in), 228 KB an SM,
+// of which the system keeps 1 KB a resident block.
+constexpr int kSmemBlockMax = 232448;
+constexpr int kSmemSM = 233472;
+constexpr int kSmemReserved = 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -84,6 +95,7 @@ struct Smem {
   static constexpr int kSp = BK + 1;  // padded row of the score tile
   static constexpr int kFloats = BQ * kDp + BK * kDp + BK * D + BQ * kSp + 3 * BQ;
   static constexpr int kBytes = kFloats * 4;
+  static_assert(kBytes <= kSmemBlockMax, "fma tiles exceed shared memory");
 };
 
 template <int BQ, int BK, int D, typename T>
@@ -258,20 +270,26 @@ template <int NWG, int D, int BK, int STAGES>
 struct WgmmaFlash {
   static constexpr int kRows = 64 * NWG;          // packed query rows
   static constexpr int kThreads = 128 * NWG + 32; // consumers, producer warp
-  static constexpr int kSub = D / 64;             // 128-byte column blocks of a row
+  static constexpr int kSub = (D + 63) / 64;      // 128-byte column blocks of a row
+  static constexpr int kDp = 64 * kSub;           // d padded to whole blocks
   static constexpr int kQSub = kRows * 128;       // bytes of one Q column block
   static constexpr int kKVSub = BK * 128;         // bytes of one K or V column block
   static constexpr int kQBytes = kSub * kQSub;
   static constexpr int kKVBytes = kSub * kKVSub;  // one K (or V) tile
   static constexpr int kStageBytes = 2 * kKVBytes;
-  // blocks an SM: one with two consumer warpgroups; with one, as many as
-  // registers and shared memory allow at d = 64
-  static constexpr int kMinBlocks = NWG > 1 ? 1 : BK == 64 ? 4 : 3;
   // 1024 bytes of slack to align the tiles (the swizzle atom), then the Q
   // tile, the ring, a Q barrier and per stage a K-full, a V-full and an
   // empty barrier
   static constexpr int kSmem =
       1024 + kQBytes + STAGES * kStageBytes + (1 + 3 * STAGES) * 8;
+  // blocks an SM: one with two consumer warpgroups; with one, as many as
+  // registers allow at d = 64 (4 with 64-column KV tiles, 3 with 128), and
+  // no more than fit in the SM's shared memory
+  static constexpr int kSmemBlocks = kSmemSM / (kSmem + kSmemReserved);
+  static constexpr int kRegBlocks = BK == 64 ? 4 : 3;
+  static constexpr int kMinBlocks =
+      NWG > 1 ? 1 : kSmemBlocks < kRegBlocks ? kSmemBlocks : kRegBlocks;
+  static_assert(kSmem <= kSmemBlockMax, "wgmma tiles exceed shared memory");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -283,6 +301,23 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// O (64 x DP f32) += P (64 x 16 bf16, registers) V (16 x DP, MN-major, 64-
+// column blocks kv_sub bytes apart, k16 = 16 rows of 128 bytes): one wgmma
+// of up to 128 columns, and one of 64 more at DP = 192.
+template <int DP>
+__device__ __forceinline__ void pv_mma(float* o, const uint32_t* p,
+                                       const unsigned char* v, uint32_t kv_sub) {
+  static_assert(DP == 64 || DP == 128 || DP == 192, "padded head dim");
+  if constexpr (DP == 64) {
+    WgmmaRS<64>::template mma<1>(o, p, sw128_desc(v, kv_sub, 1024));
+  } else {
+    WgmmaRS<128>::template mma<1>(o, p, sw128_desc(v, kv_sub, 1024));
+    if constexpr (DP == 192)
+      WgmmaRS<64>::template mma<1>(o + 64, p,
+                                   sw128_desc(v + 2 * kv_sub, kv_sub, 1024));
+  }
 }
 
 // Registers: the producer is one warp, so nearly the whole register file
@@ -299,7 +334,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tma_q,
                        const int* __restrict__ kv_start, int S, int Skv,
                        int KVH, int G, float scale_log2, int causal) {
   typedef WgmmaFlash<NWG, D, BK, STAGES> L;
-  static_assert((D == 64 || D == 128) && (BK == 64 || BK == 128), "wgmma tiles");
+  static_assert(D % 16 == 0 && D <= 192 && (BK == 64 || BK == 128), "wgmma tiles");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ring = qs + L::kQBytes;
@@ -365,9 +400,9 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tma_q,
       : causal ? min(Skv, min(p0 + (cw * 64 + 63) / G, S - 1) + shift + 1) : Skv;
   const unsigned char* qa = qs + cw * 64 * 128;
 
-  float o[D / 2];
+  float o[L::kDp / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < L::kDp / 2; ++i) o[i] = 0.0f;
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;
   mbar_wait(qbar, 0);
 
@@ -442,7 +477,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tma_q,
       l_lo = l_lo * alpha_lo + sum_lo;
       l_hi = l_hi * alpha_hi + sum_hi;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < L::kDp / 8; ++i) {
         o[4 * i] *= alpha_lo;
         o[4 * i + 1] *= alpha_lo;
         o[4 * i + 2] *= alpha_hi;
@@ -455,11 +490,10 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tma_q,
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j)
-        WgmmaRS<D>::template mma<1>(o, pa[j],
-                                    sw128_desc(vs + j * 16 * 128, L::kKVSub, 1024));
+        pv_mma<L::kDp>(o, pa[j], vs + j * 16 * 128, L::kKVSub);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<D / 2>(o);
+      fence_regs<L::kDp / 2>(o);
       fence_regs<BK / 4>(&pa[0][0]);  // P's registers stay live until here
     } else {
       // A skipped tile still waits for its load before releasing the stage,
@@ -484,7 +518,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tma_q,
   const float inv_hi = l_hi == 0.0f ? 1.0f : 1.0f / l_hi;
   unsigned char* os = qs + cw * 64 * 128;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < L::kDp / 8; ++i) {
     unsigned char* at = os + (i / 8) * L::kQSub + (((i % 8) ^ (r % 8)) * 16) + quad * 4;
     *reinterpret_cast<uint32_t*>(at + r * 128) =
         pack_bf16(o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo);
@@ -538,15 +572,12 @@ cudaError_t launch_fma(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int BQ, int BK, typename T>
+// The launch of the instantiation at a.D among the head dims Ds.
+template <int BQ, int BK, typename T, int... Ds>
 int fma_d(const Args& a) {
-  switch (a.D) {
-    case 16: return launch_fma<BQ, BK, 16, T>(a);
-    case 32: return launch_fma<BQ, BK, 32, T>(a);
-    case 64: return launch_fma<BQ, BK, 64, T>(a);
-    case 128: return launch_fma<BQ, BK, 128, T>(a);
-    default: return ERR_NO_TILE;
-  }
+  int err = ERR_NO_TILE;
+  (void)((a.D == Ds && ((err = launch_fma<BQ, BK, Ds, T>(a)), true)) || ...);
+  return err;
 }
 
 // A 4-D bf16 tensor map over (d, heads, positions, batch) of a tensor whose
@@ -600,32 +631,36 @@ int launch_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int NWG, int BK, int STAGES>
+template <int NWG, int BK, int STAGES, int... Ds>
 int wgmma_d(const Args& a) {
-  switch (a.D) {
-    case 64: return launch_wgmma<NWG, 64, BK, STAGES>(a);
-    case 128: return launch_wgmma<NWG, 128, BK, STAGES>(a);
-    default: return ERR_NO_TILE;
-  }
+  int err = ERR_NO_TILE;
+  (void)((a.D == Ds && ((err = launch_wgmma<NWG, Ds, BK, STAGES>(a)), true)) ||
+         ...);
+  return err;
 }
 
 // One dispatch_<kernel> per FlashAttentionConfig.kernel; each line is one
 // instantiated schedule (bq: query rows per block, bk: KV columns per tile,
-// stages: ring depth) for every head dim the kernel takes.  The CPU tests
-// read them from this text.  The wgmma schedules with one consumer
-// warpgroup (bq = 64) spill at d = 128 under their launch bounds; the tile
-// table takes bq = 128 there.
+// stages: ring depth), and the template arguments after the schedule's
+// three are the head dims it is instantiated for.  The CPU tests read them
+// from this text.  The wgmma schedules with one consumer warpgroup (bq =
+// 64) spill at d = 128 under their launch bounds; the tile table takes bq =
+// 128 there and at d = 80 (padded to 128).  At d = 160 (padded to 192) O
+// takes 96 registers a thread, and two stages of 128-column K / V tiles
+// with a 128-row Q tile exceed shared memory: bq = 128 with 64-column
+// tiles (145 KB, one block an SM).
 template <typename T>
 int dispatch_fma(const Args& a, int bq, int bk) {
-  if (bq == 64 && bk == 64) return fma_d<64, 64, T>(a);
-  if (bq == 32 && bk == 64) return fma_d<32, 64, T>(a);
+  if (bq == 64 && bk == 64) return fma_d<64, 64, T, 16, 32, 64, 80, 128, 160>(a);
+  if (bq == 32 && bk == 64) return fma_d<32, 64, T, 16, 32, 64, 80, 128, 160>(a);
   return ERR_NO_TILE;
 }
 
 int dispatch_wgmma(const Args& a, int bq, int bk, int stages) {
-  if (bq == 64 && bk == 64 && stages == 2) return wgmma_d<1, 64, 2>(a);
-  if (bq == 64 && bk == 128 && stages == 2) return wgmma_d<1, 128, 2>(a);
-  if (bq == 128 && bk == 128 && stages == 2) return wgmma_d<2, 128, 2>(a);
+  if (bq == 64 && bk == 64 && stages == 2) return wgmma_d<1, 64, 2, 64, 128>(a);
+  if (bq == 64 && bk == 128 && stages == 2) return wgmma_d<1, 128, 2, 64, 128>(a);
+  if (bq == 128 && bk == 128 && stages == 2) return wgmma_d<2, 128, 2, 64, 80, 128>(a);
+  if (bq == 128 && bk == 64 && stages == 2) return wgmma_d<2, 64, 2, 160>(a);
   return ERR_NO_TILE;
 }
 
@@ -634,8 +669,8 @@ int dispatch_wgmma(const Args& a, int bq, int bk, int stages) {
 // q: (B, S, H, D); k, v: (B, Skv, KVH, D), each contiguous in its last three
 // dims, with the given batch strides (elements).  o: contiguous (B, S, H, D).
 // kv_start: (B,) int32 or null.  is_f32: float32 operands (else bfloat16).
-// kernel: 0 fma (bf16 or f32), 1 wgmma (bf16; D 64 or 128; H / KVH dividing
-// 64; 16-byte aligned bases and batch strides; scale > 0).  Returns
+// kernel: 0 fma (bf16 or f32), 1 wgmma (bf16; D 64, 80, 128 or 160; H / KVH
+// dividing 64; 16-byte aligned bases and batch strides; scale > 0).  Returns
 // cudaGetLastError() after the launch, or a negative code: -1 no
 // instantiation of (kernel, bq, bk, stages, D), -2 tensor map refused, -4
 // arguments the kernel does not take.

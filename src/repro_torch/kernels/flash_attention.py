@@ -9,15 +9,15 @@ One decision is the wrapper's, taken from the operands before the launch:
 a ``wgmma`` schedule runs only on operands that kernel takes
 (``wgmma_takes``); others run the ``fma`` kernel with the table's float32
 schedule.  ``flash_attention_cuda.launches_by_path`` counts launches by
-kernel.  ``instantiated_schedules`` reads the schedules the source
-instantiates from its text.
+kernel.  ``instantiated_head_dims`` reads the schedules the source
+instantiates, and the head dims of each, from its text.
 """
 from __future__ import annotations
 
 import ctypes
 import re
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,6 +28,8 @@ from repro_torch.kernels.ref import flash_attention_ref
 KERNEL_CODES = {"fma": 0, "wgmma": 1}
 #: query rows of one consumer warpgroup of the wgmma kernel: H / KV divides it
 WGMMA_GROUP_ROWS = 64
+#: head dims the wgmma kernel takes (80 and 160 padded to 64-column blocks)
+WGMMA_HEAD_DIMS = (64, 80, 128, 160)
 
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,        # q, k, v
@@ -67,11 +69,12 @@ def _batch_stride(x: torch.Tensor) -> int:
 def wgmma_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float) -> bool:
     """Whether the ``wgmma`` kernel takes these (inner-contiguous) operands:
-    bf16, head dim 64 or 128, H / KV dividing a warpgroup's 64 rows, a
-    positive scale, and 16-byte aligned bases and batch strides (TMA)."""
+    bf16, a head dim in ``WGMMA_HEAD_DIMS``, H / KV dividing a warpgroup's
+    64 rows, a positive scale, and 16-byte aligned bases and batch strides
+    (TMA)."""
     _, _, h, d = q.shape
     kvh = k.shape[2]
-    if q.dtype != torch.bfloat16 or d not in (64, 128) or scale <= 0:
+    if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS or scale <= 0:
         return False
     if h % kvh or WGMMA_GROUP_ROWS % (h // kvh):
         return False
@@ -138,18 +141,30 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_cuda.launches_by_path = dict.fromkeys(KERNEL_CODES, 0)
 
 
-def instantiated_schedules() -> Dict[str, set]:
-    """``{kernel: {(bq, bk, stages)}}`` read from the ``dispatch_<kernel>``
-    functions of ``csrc/flash_attention.cu`` (stages 1 where the kernel has
-    no ring): the schedules a ``FlashAttentionConfig`` may name."""
+def instantiated_head_dims() -> Dict[str, Dict[Tuple[int, int, int],
+                                                 Tuple[int, ...]]]:
+    """``{kernel: {(bq, bk, stages): head dims}}`` read from the
+    ``dispatch_<kernel>`` functions of ``csrc/flash_attention.cu`` (stages 1
+    where the kernel has no ring; the head dims are the template arguments
+    after the schedule's three): the schedules a ``FlashAttentionConfig``
+    may name, and the head dims each launches at."""
     src = (Path(__file__).parent / "csrc" / "flash_attention.cu").read_text()
     found = {}
     for kernel, body in re.findall(
             r"int dispatch_(\w+)\(const Args& a[^)]*\) \{(.*?)\n\}", src, re.S):
         found[kernel] = {
-            (int(bq), int(bk), int(st or 1)) for bq, bk, st in re.findall(
-                r"bq == (\d+) && bk == (\d+)(?: && stages == (\d+))?\)", body)}
+            (int(bq), int(bk), int(st or 1)):
+                tuple(int(d) for d in args.split(",")[3:])
+            for bq, bk, st, args in re.findall(
+                r"bq == (\d+) && bk == (\d+)(?: && stages == (\d+))?\) "
+                r"return \w+<([^>]*)>", body)}
     return found
+
+
+def instantiated_schedules() -> Dict[str, set]:
+    """``{kernel: {(bq, bk, stages)}}``: the schedules of
+    :func:`instantiated_head_dims`."""
+    return {k: set(v) for k, v in instantiated_head_dims().items()}
 
 
 def flash_attention(q, k, v, *, config, causal: bool = True,

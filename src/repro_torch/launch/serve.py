@@ -12,8 +12,10 @@ engine's ``ServeConfig``; ``--temperature`` samples instead of greedy
 decoding; ``--kv-int8`` serves with an int8 KV cache (which runs the wave
 scheduler); ``--server`` submits every prompt to a threaded ``Server`` with
 a stream callback instead of one batched ``generate`` call.  A model with
-extra inputs (the vlm family's image embeddings) gets zeros for them, as
-the reference's launcher gives, and cannot be served through ``--server``.
+extra inputs (the vlm family's image embeddings, the audio family's frame
+embeddings) gets random ones drawn from seed 0, one row a prompt, like its
+weights (the reference's launcher gives zeros), and cannot be served
+through ``--server``.
 """
 from __future__ import annotations
 
@@ -104,7 +106,9 @@ def main(argv=None) -> None:
         scheduler=args.scheduler, page_size=args.page_size,
         capacity_tokens=args.capacity_tokens, decode_chunk=args.decode_chunk,
         prefix_cache=not args.no_prefix_cache, device=args.device))
-    extra = {k: torch.zeros(spec.shape, dtype=spec.dtype, device=eng.device)
+    gen = torch.Generator(device=eng.device).manual_seed(0)
+    extra = {k: torch.randn(spec.shape, generator=gen,
+                            device=eng.device).to(spec.dtype)
              for k, spec in model.extra_inputs(len(prompts)).items()}
     server = None
     if args.server:

@@ -1,4 +1,5 @@
-"""Shared layers: norms, RoPE, GQA attention (chunked or flash), gated MLP.
+"""Shared layers: norms, RoPE, GQA attention (chunked or flash), the gated
+MLP and whisper's GELU MLP.
 
 Every dense projection goes through ``core.matmul`` (the CUDA GEMM kernel
 on the card) and every eligible prefill attention through
@@ -314,3 +315,19 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
     gate = matmul(x, params["w_gate"], activation="silu")
     up = matmul(x, params["w_up"])
     return matmul(gate * up, params["w_down"])
+
+
+def mlp_gelu_template(d_model: int, d_ff: int):
+    """Whisper's two-matrix GELU MLP, with biases."""
+    return {
+        "w_up": ParamSpec((d_model, d_ff), ("embed", "ff")),
+        "b_up": ParamSpec((d_ff,), ("ff",), init="zeros"),
+        "w_down": ParamSpec((d_ff, d_model), ("ff", "embed")),
+        "b_down": ParamSpec((d_model,), ("embed",), init="zeros"),
+    }
+
+
+def mlp_gelu(params, x: torch.Tensor) -> torch.Tensor:
+    """The bias and the tanh-approximated GELU ride on the GEMM's epilogue."""
+    h = matmul(x, params["w_up"], bias=params["b_up"], activation="gelu")
+    return matmul(h, params["w_down"], bias=params["b_down"])

@@ -50,24 +50,31 @@ class Model:
 
     def extra_inputs(self, batch_size: int) -> Dict[str, TensorSpec]:
         """Model inputs beyond the tokens (the modality frontends' stub
-        outputs), by name: the vlm family's ``image_embeds`` (B, N_img, D)."""
+        outputs), by name: the vlm family's ``image_embeds`` (B, N_img, D),
+        the audio family's ``encoder_embeds`` (B, enc_len, D)."""
         cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
         if cfg.family == "vlm":
             return {"image_embeds": TensorSpec(
-                (batch_size, cfg.num_image_tokens, cfg.d_model),
-                getattr(torch, cfg.dtype))}
+                (batch_size, cfg.num_image_tokens, cfg.d_model), dt)}
+        if cfg.family == "audio":
+            return {"encoder_embeds": TensorSpec(
+                (batch_size, cfg.encoder_len, cfg.d_model), dt)}
         return {}
 
 
 #: families with a model path in the port
-PORTED_FAMILIES = ("dense", "moe", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "audio")
+#: where ROADMAP.md queues each family still to port
+UNPORTED_FAMILIES = {"ssm": "queue 1, item 2", "hybrid": "queue 1, item 3"}
 
 
 def check_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
+        where = UNPORTED_FAMILIES.get(cfg.family, "queue 1")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; {PORTED_FAMILIES} are "
-            f"(ROADMAP.md queue 1, item 6: the other families)")
+            f"(ROADMAP.md {where})")
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -5,7 +5,9 @@ init rule), the same tree the JAX package builds.  ``init_params`` turns it
 into tensors drawn from a seeded ``torch.Generator`` on the target device,
 at the reference's scales (``1/sqrt(fan_in)``, per-spec overrides, ones /
 zeros); the values differ from ``jax.random``'s, so parity tests copy the
-JAX params over with ``params_from_numpy`` instead.
+JAX params over with ``params_from_numpy`` instead.  A ``kmajor`` leaf
+(2-D) is the transpose of a contiguous buffer of the reversed shape; both
+paths lay it out so.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ class ParamSpec:
     init: str = "normal"                 # normal | zeros | ones
     scale: Optional[float] = None        # stddev; None -> 1/sqrt(fan_in)
     dtype: Optional[str] = None          # override model dtype
+    kmajor: bool = False                 # 2-D: stored as buffer.t(), buffer
+                                         # contiguous (shape[1], shape[0])
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -71,10 +75,11 @@ def init_params(template, seed: int = 0, default_dtype: str = "float32",
         scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
         gen = torch.Generator(device=dev)
         gen.manual_seed(_leaf_seed(seed, path))
-        x = torch.randn(spec.shape, generator=gen, device=dev,
-                        dtype=torch.float32)
+        shape = spec.shape[::-1] if spec.kmajor else spec.shape
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         # scaled in place: one f32 staging copy of this leaf, not two
-        return x.mul_(scale).to(dtype)
+        x = x.mul_(scale).to(dtype)
+        return x.t() if spec.kmajor else x
 
     return map_tree(init_leaf, template)
 
@@ -83,23 +88,30 @@ def param_count(template) -> int:
     return sum(math.prod(spec.shape) for spec in tree_leaves(template))
 
 
-def params_from_numpy(tree, device: DeviceLike = None):
+def params_from_numpy(tree, device: DeviceLike = None, template=None):
     """Copy a tree of numpy arrays (e.g. JAX params through ``np.asarray``)
     into torch tensors on ``device``, bit for bit.
 
     A bfloat16 leaf may arrive as ml_dtypes' ``bfloat16`` or as its
     ``uint16`` view; either becomes ``torch.bfloat16`` by reinterpretation,
-    never by a float round trip.
+    never by a float round trip.  With the model's ``template``, its
+    ``kmajor`` leaves are laid out K-major (same shape and values).
     """
     dev = resolve_device(device)
+    kmajor = set()
+    if template is not None:
+        map_tree(lambda p, spec: kmajor.add(p) if spec.kmajor else None,
+                 template)
 
-    def leaf(_path, arr):
+    def leaf(path, arr):
         arr = np.asarray(arr)
         if arr.dtype.name == "bfloat16" or arr.dtype == np.uint16:
             bits = np.ascontiguousarray(arr).view(np.int16).copy()
             t = torch.from_numpy(bits).view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr, copy=True))
+        if path in kmajor:
+            return t.t().contiguous().to(dev).t()
         return t.to(dev)
 
     return map_tree(leaf, tree)

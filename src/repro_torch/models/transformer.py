@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM, dense, MoE and VLM branches: built from
-the shared layers, the MoE layer, the GEMM kernel and the flash kernel.
+"""Transformer LMs, dense, MoE and VLM branches, and whisper's
+encoder-decoder: built from the shared layers, the MoE layer, the GEMM
+kernel and the flash kernel.
 
 Layer params are stacked on a leading "layer" dim, as in the reference; the
 stack runs as a Python loop over that dim where the reference uses
@@ -13,6 +14,19 @@ cross_attn_period``).  Its self cache keeps both leading dims, (U, P-1, B,
 S, KV, hd), and ``"cross"`` holds each unit's image K, V (U, B, N_img, KV,
 hd), computed at prefill.  Every cache leaf has its batch dim at -4 and its
 token dim at -3, whatever leads them: the serve engine indexes from the end.
+
+Audio (whisper): a non-causal encoder over the frontend stub's frame
+embeddings (``encoder_embeds``), then a decoder with learned positions
+whose layers run causal self-attention over ``"self"``, cross-attention
+over ``"cross"`` (each layer's encoder K, V, (L, B, enc_len, KV, hd),
+computed at prefill) and a GELU MLP.
+
+An untied head whose vocab is not a multiple of 8 (whisper's 51866) is
+stored K-major: its (d_model, vocab) tensor is the transpose of a
+contiguous (vocab, d_model) buffer, as a tied head reads the embedding.
+The GEMM's fast kernels read a row-major weight in 16-byte chunks along
+its rows, which such a vocab cannot give; a K-major one they read along
+d_model at any vocab.
 """
 from __future__ import annotations
 
@@ -67,6 +81,26 @@ def _cross_block_template(cfg: ModelConfig):
     }
 
 
+def _encoder_block_template(cfg: ModelConfig):
+    return {
+        "ln1": L.norm_template(cfg.d_model, cfg.norm),
+        "attn": L.attention_template(cfg.d_model, attn_dims(cfg), qkv_bias=True),
+        "ln2": L.norm_template(cfg.d_model, cfg.norm),
+        "mlp": L.mlp_gelu_template(cfg.d_model, cfg.d_ff),
+    }
+
+
+def _whisper_dec_block_template(cfg: ModelConfig):
+    return {
+        "ln1": L.norm_template(cfg.d_model, cfg.norm),
+        "attn": L.attention_template(cfg.d_model, attn_dims(cfg), qkv_bias=True),
+        "ln_x": L.norm_template(cfg.d_model, cfg.norm),
+        "cross": L.attention_template(cfg.d_model, attn_dims(cfg), qkv_bias=True),
+        "ln2": L.norm_template(cfg.d_model, cfg.norm),
+        "mlp": L.mlp_gelu_template(cfg.d_model, cfg.d_ff),
+    }
+
+
 def _units(cfg: ModelConfig):
     """VLM: (units, self layers per unit)."""
     return cfg.num_layers // cfg.cross_attn_period, cfg.cross_attn_period - 1
@@ -80,7 +114,8 @@ def template(cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
-                                 ("embed", "vocab"))
+                                 ("embed", "vocab"),
+                                 kmajor=cfg.vocab_size % 8 != 0)
     if cfg.family == "vlm":
         units, per_unit = _units(cfg)
         t["units"] = {
@@ -88,6 +123,14 @@ def template(cfg: ModelConfig):
                 _stack_template(_dense_block_template(cfg), per_unit), units),
             "cross": _stack_template(_cross_block_template(cfg), units),
         }
+    elif cfg.family == "audio":
+        t["enc_blocks"] = _stack_template(_encoder_block_template(cfg),
+                                          cfg.encoder_layers)
+        t["enc_ln_f"] = L.norm_template(cfg.d_model, cfg.norm)
+        t["dec_blocks"] = _stack_template(_whisper_dec_block_template(cfg),
+                                          cfg.num_layers)
+        t["pos_emb"] = ParamSpec((cfg.learned_positions, cfg.d_model),
+                                 (None, "embed"), scale=0.02)
     else:
         t["blocks"] = _stack_template(_dense_block_template(cfg),
                                       cfg.num_layers)
@@ -172,10 +215,81 @@ def _run_vlm_stack(cfg, params, x, positions, cross_cache, caches=None,
     return x, caches, (aux if with_aux else None)
 
 
+def _run_encoder(cfg: ModelConfig, params, encoder_embeds):
+    """Whisper's encoder over ``encoder_embeds`` (B, enc_len, D), the
+    conv frontend's stub output: non-causal self-attention (the chunked
+    path, as in the reference) and the GELU MLP a layer, then the final
+    norm."""
+    x = encoder_embeds.to(getattr(torch, cfg.dtype))
+    blocks = params["enc_blocks"]
+    for i in range(blocks["ln1"]["scale"].shape[0]):
+        bp = _layer(blocks, i)
+        h, _ = L.attention(
+            bp["attn"], L.apply_norm(bp["ln1"], x, eps=cfg.norm_eps),
+            attn_dims(cfg), causal=False,
+            p_dtype=getattr(torch, cfg.attn_p_dtype),
+            attn_impl=cfg.attention_impl)
+        x = x + h
+        x = x + L.mlp_gelu(bp["mlp"],
+                           L.apply_norm(bp["ln2"], x, eps=cfg.norm_eps))
+    return L.apply_norm(params["enc_ln_f"], x, eps=cfg.norm_eps)
+
+
+def _whisper_cross_cache(cfg: ModelConfig, params, enc):
+    """Every decoder layer's cross K, V of the encoder output: each (L, B,
+    enc_len, KV, hd)."""
+    blocks = params["dec_blocks"]
+    per_layer = [L.cross_kv(_layer(blocks, i)["cross"], enc, attn_dims(cfg))
+                 for i in range(blocks["ln1"]["scale"].shape[0])]
+    return tuple(torch.stack(t) for t in zip(*per_layer))
+
+
+def _run_whisper_decoder(cfg, params, x, positions, cross_cache, caches=None,
+                         cache_offset=None, kv_start=None, with_aux=False):
+    """Loop over the decoder layers: causal self-attention (cache leaves
+    [i]), cross-attention over layer i's encoder K, V, the GELU MLP.
+    Returns (x, caches_or_None, aux) as :func:`_run_dense_stack` (aux 0.0:
+    no MoE layer)."""
+    ks, vs = cross_cache
+    blocks = params["dec_blocks"]
+    p_dtype = getattr(torch, cfg.attn_p_dtype)
+    for i in range(blocks["ln1"]["scale"].shape[0]):
+        bp = _layer(blocks, i)
+        cache = None if caches is None else tuple(_layer(c, i) for c in caches)
+        h, _ = L.attention(
+            bp["attn"], L.apply_norm(bp["ln1"], x, eps=cfg.norm_eps),
+            attn_dims(cfg), positions=positions, kv_cache=cache,
+            cache_offset=cache_offset, p_dtype=p_dtype,
+            attn_impl=cfg.attention_impl, kv_start=kv_start)
+        x = x + h
+        h, _ = L.attention(
+            bp["cross"], L.apply_norm(bp["ln_x"], x, eps=cfg.norm_eps),
+            attn_dims(cfg), kv_override=(ks[i], vs[i]), p_dtype=p_dtype)
+        x = x + h
+        x = x + L.mlp_gelu(bp["mlp"],
+                           L.apply_norm(bp["ln2"], x, eps=cfg.norm_eps))
+    return x, caches, (0.0 if with_aux else None)
+
+
+def _cross_cache(cfg: ModelConfig, params, batch):
+    """The cross K, V of the batch's extra inputs (vlm: the image
+    embeddings; audio: the encoder's output over the frame embeddings), or
+    None for the families without cross-attention."""
+    if cfg.family == "vlm":
+        return _vlm_cross_cache(cfg, params, batch["image_embeds"])
+    if cfg.family == "audio":
+        return _whisper_cross_cache(
+            cfg, params, _run_encoder(cfg, params, batch["encoder_embeds"]))
+    return None
+
+
 def _run_stack(cfg, params, x, positions, cross_cache=None, **kw):
     """The family's stack: (x, caches_or_None, aux)."""
     if cfg.family == "vlm":
         return _run_vlm_stack(cfg, params, x, positions, cross_cache, **kw)
+    if cfg.family == "audio":
+        return _run_whisper_decoder(cfg, params, x, positions, cross_cache,
+                                    **kw)
     return _run_dense_stack(cfg, params["blocks"], x, positions, **kw)
 
 
@@ -200,6 +314,17 @@ def _positions(batch: int, seq: int, device, offset: int = 0):
                                  device=device).expand(batch, seq)
 
 
+def _add_pos_emb(cfg: ModelConfig, params, x, positions):
+    """Audio: ``x`` plus the learned positions ``positions`` (B, S), each
+    row's own for ragged rows.  Indices past the table clamp to its last
+    row, as the reference's gather and ``dynamic_slice`` do."""
+    if cfg.family != "audio":
+        return x
+    table = params["pos_emb"]
+    idx = positions.long().clamp(0, table.shape[0] - 1)
+    return x + table[idx].to(x.dtype)
+
+
 def _ragged_positions(seq: int, kv_start: torch.Tensor):
     """Per-row positions of a left-padded ragged batch: each row's first real
     token sits at position 0 (pad columns clamp to 0; they are masked)."""
@@ -212,11 +337,10 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Scoring forward -> (logits f32 (B, S, V), aux_loss)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = _embed(cfg, params, tokens)
-    cross = (_vlm_cross_cache(cfg, params, batch["image_embeds"])
-             if cfg.family == "vlm" else None)
-    x, _, aux = _run_stack(cfg, params, x, _positions(b, s, tokens.device),
-                           cross, with_aux=True)
+    pos = _positions(b, s, tokens.device)
+    x = _add_pos_emb(cfg, params, _embed(cfg, params, tokens), pos)
+    x, _, aux = _run_stack(cfg, params, x, pos,
+                           _cross_cache(cfg, params, batch), with_aux=True)
     return _unembed(cfg, params, x), aux
 
 
@@ -226,7 +350,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     with ``cfg.kv_quant`` each of K and V is ``{"q": int8 (L, B, max_len,
     KV, hd), "s": f32 scales (L, B, max_len, KV)}``.  VLM: ``"self"`` leaves
     (U, P-1, B, max_len, KV, hd) and ``"cross"`` (U, B, N_img, KV, hd), both
-    plain (as the reference, whatever ``kv_quant`` says)."""
+    plain (as the reference, whatever ``kv_quant`` says).  Audio: ``"self"``
+    as the dense family's and a plain ``"cross"`` (L, B, enc_len, KV, hd)."""
     dtype = dtype or getattr(torch, cfg.dtype)
     kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
     dev = resolve_device(device)
@@ -241,11 +366,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                                for _ in range(2))}
     shape = (cfg.num_layers, batch, max_len) + kv
     if cfg.kv_quant:
-        return {"self": tuple(
+        out = {"self": tuple(
             {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
              "s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev)}
             for _ in range(2))}
-    return {"self": (zeros(*shape), zeros(*shape))}
+    else:
+        out = {"self": (zeros(*shape), zeros(*shape))}
+    if cfg.family == "audio":
+        out["cross"] = tuple(zeros(cfg.num_layers, batch, cfg.encoder_len, *kv)
+                             for _ in range(2))
+    return out
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
@@ -255,16 +385,16 @@ def prefill(cfg: ModelConfig, params, batch, cache):
     ``batch["kv_start"]`` (optional (B,) int32) marks per-row left pad: pad
     columns are masked out of attention and positions restart at 0 at each
     row's first real token, so every row computes what it would alone.
-    VLM: ``batch["image_embeds"]`` (B, N_img, D); the returned cache's
+    VLM: ``batch["image_embeds"]`` (B, N_img, D); audio:
+    ``batch["encoder_embeds"]`` (B, enc_len, D).  The returned cache's
     ``"cross"`` holds their K, V (new tensors, not ``cache``'s)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     kv_start: Optional[torch.Tensor] = batch.get("kv_start")
-    x = _embed(cfg, params, tokens)
     pos = (_positions(b, s, tokens.device) if kv_start is None
            else _ragged_positions(s, kv_start))
-    cross = (_vlm_cross_cache(cfg, params, batch["image_embeds"])
-             if cfg.family == "vlm" else None)
+    x = _add_pos_emb(cfg, params, _embed(cfg, params, tokens), pos)
+    cross = _cross_cache(cfg, params, batch)
     x, new_self, _ = _run_stack(cfg, params, x, pos, cross,
                                 caches=cache["self"], cache_offset=0,
                                 kv_start=kv_start)
@@ -280,11 +410,11 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, offset: int,
     """One token step.  tokens: (B, 1); ``offset`` (int) = current length.
     Returns (logits (B, V) f32, cache)."""
     b = tokens.shape[0]
-    x = _embed(cfg, params, tokens)
     if kv_start is None:
         pos = torch.full((b, 1), offset, dtype=torch.int32, device=tokens.device)
     else:
         pos = (offset - kv_start).clamp(min=0).to(torch.int32)[:, None]
+    x = _add_pos_emb(cfg, params, _embed(cfg, params, tokens), pos)
     x, new_self, _ = _run_stack(cfg, params, x, pos, cache.get("cross"),
                                 caches=cache["self"], cache_offset=offset,
                                 kv_start=kv_start)

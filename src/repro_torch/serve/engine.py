@@ -52,13 +52,15 @@ with two schedulers sharing one model path.
   Prompt lengths are bucketed to powers of two (min 8; a wave's bucket is
   clamped so the bucket plus its decode budget fits ``max_len``).
 * **Extra inputs and fixed leaves** — ``generate``/``run`` take
-  ``extra_inputs`` (the vlm family's image embeddings), one row per
-  request (``Request.row``), placed at each request's slot of a prefill
-  batch.  Cache leaves that are not paged (the vlm family's cross K/V) live
-  in one resident tree over the slots; admission copies the admitted rows
-  into it, and decode chunks read it whole.  The prefix cache is skipped
-  while extras are given.  Every cache leaf keeps its leading dims (L, or
-  U and P-1) and is indexed from the end: batch at -4, tokens at -3.
+  ``extra_inputs`` (the vlm family's image embeddings, the audio family's
+  frame embeddings), one row per request (``Request.row``), placed at each
+  request's slot of a prefill batch.  Cache leaves that are not paged (the
+  cross K/V of vlm and audio) live in one resident tree over the slots;
+  admission copies the admitted rows into it, and decode chunks read it
+  whole; a prefill's own cache holds only the ``"self"`` leaves.  The
+  prefix cache is skipped while extras are given.  Every cache leaf keeps
+  its leading dims (L, or U and P-1) and is indexed from the end: batch at
+  -4, tokens at -3.
 """
 from __future__ import annotations
 
@@ -280,13 +282,19 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     # -- dense cache (wave) ---------------------------------------------------
+    def _self_cache(self, max_len: int):
+        """The ``"self"`` leaves of ``init_cache(max_batch, max_len)``: all a
+        prefill reads of its cache argument (it makes the fixed leaves, the
+        cross K/V, anew)."""
+        return {"self": self.model.init_cache(
+            self.cfg.max_batch, max_len, device=self.device)["self"]}
+
     def _ensure_cache(self):
         """One dense ``init_cache(max_batch, max_len)`` per engine, reused by
         every wave: prefill rewrites a wave's columns [0, plen) and decode
         reads only [kv_start, offset]."""
         if self._cache is None:
-            self._cache = self.model.init_cache(
-                self.cfg.max_batch, self.cfg.max_len, device=self.device)
+            self._cache = self._self_cache(self.cfg.max_len)
             self._stats["cache_allocs"] += 1
         return self._cache
 
@@ -325,9 +333,7 @@ class Engine:
         admissions: prefill overwrites all its columns [0, plen)."""
         cache = self._scratch.get(plen)
         if cache is None:
-            cache = self.model.init_cache(self.cfg.max_batch, plen,
-                                          device=self.device)
-            self._scratch[plen] = cache
+            cache = self._scratch[plen] = self._self_cache(plen)
         return cache
 
     def _scatter_fixed(self, filled, slots: torch.Tensor) -> None:

@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.tile_config import flash_tiles, gemm_tiles  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    instantiated_schedules as flash_schedules)
+    instantiated_head_dims as flash_head_dims)
 from repro_torch.kernels.gemm import instantiated_schedules  # noqa: E402
 
 ACTIVATIONS = [None, "relu", "gelu", "silu", "tanh"]
@@ -80,6 +80,10 @@ NEW_PATHS = [
     (200, 2048, 1000, True, None, True, False, "wgmma"),     # K-major B
     (130, 200, 520, False, "gelu", False, True, "wgmma"),    # ragged K and N
     (24, 8192, 2048, False, "relu", False, False, "wgmma"),
+    # whisper-large-v3's untied unembed, K-major: N = 51866 ends mid-tile
+    (8, 1280, 51866, True, None, True, False, "decode"),
+    (1, 1280, 51866, True, None, True, False, "decode"),
+    (2000, 1280, 51866, True, None, True, False, "wgmma"),
 ]
 
 
@@ -160,6 +164,34 @@ def test_cuda_decode_is_deterministic_and_batch_invariant(cuda, k, n, kmajor):
     assert torch.equal(run(a[:8]), first)
 
 
+def test_cuda_unaligned_unembed_matches_matmul(cuda):
+    """whisper-large-v3's unembed (N = 51866, N % 8 = 2) in the layout the
+    port stores it, a K-major (V, D) buffer read as its transpose: decode at
+    M = 8 and wgmma at a prefill M, through the matmul front end, agree
+    with the plain version and with torch.matmul; the row-major layout of
+    the same weight would leave both fast kernels."""
+    from repro_torch.core import matmul
+    from repro_torch.kernels.gemm import gemm_cuda
+    d, vocab = 1280, 51866
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = (torch.randn(vocab, d, generator=gen, device=cuda) * d ** -0.5
+         ).to(torch.bfloat16).t()
+    for m, path in ((8, "decode"), (8 * 300, "wgmma")):
+        x = torch.randn(m, d, generator=gen, device=cuda).to(torch.bfloat16)
+        before = dict(gemm_cuda.launches_by_path)
+        got = matmul(x, w, out_dtype=torch.float32)
+        assert gemm_cuda.launches_by_path[path] == before[path] + 1, path
+        want = ref.gemm_ref(x, w, out_dtype=torch.float32)
+        lib = torch.matmul(x.float(), w.float())
+        torch.cuda.synchronize()
+        assert tuple(got.shape) == (m, vocab)
+        torch.testing.assert_close(got, want, **F32)
+        torch.testing.assert_close(got, lib, **F32)
+    before = dict(gemm_cuda.launches_by_path)
+    matmul(x[:8], w.contiguous(), out_dtype=torch.float32)
+    assert gemm_cuda.launches_by_path["wmma"] == before["wmma"] + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_matches_plain_version(cuda, dtype):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -189,6 +221,14 @@ WGMMA_FLASH = [
     (4, 200, 200, 32, 8, 64, [0, 129, 63, 200], 1024),       # cache views
     (2, 300, 300, 8, 1, 128, [17, 0], 1024),
     (8, 256, 256, 16, 16, 128, [0, 17, 100, 255, 256, 3, 64, 200], None),  # olmoe
+    # one case per (H, KV, d) of the catalog's archs that no row above has
+    (8, 256, 256, 32, 8, 160, [0, 17, 100, 255, 256, 3, 64, 200], None),   # stablelm
+    (3, 333, 333, 32, 8, 160, [0, 70, 333], 1024),           # d 160, cache views
+    (8, 256, 256, 32, 32, 80, [0, 17, 100, 255, 256, 3, 64, 200], None),   # zamba2
+    (3, 333, 333, 32, 32, 80, [5, 0, 333], 1024),            # d 80, cache views
+    (8, 256, 256, 20, 20, 64, [0, 17, 100, 255, 256, 3, 64, 200], None),   # whisper
+    (4, 200, 200, 32, 2, 128, [0, 13, 199, 200], None),      # chatglm3, H / KV 16
+    (2, 100, 256, 32, 8, 128, [0, 40], None),                # yi / vlm, S < S_kv
 ] + [(4, n, n, 32, 8, 64, [0, n // 3, n - 1, n], 1024)       # engine buckets
      for n in (8, 16, 32, 64, 128, 512)]
 
@@ -231,12 +271,13 @@ def test_cuda_flash_wgmma_matches_plain_version(cuda, case):
             assert not got[i].any()
 
 
-FLASH_SCHEDULES = sorted(flash_schedules()["wgmma"])
+# every wgmma schedule flash_attention.cu instantiates, at each head dim
+FLASH_SCHEDULES = [(sched, d) for sched, dims in sorted(
+    flash_head_dims()["wgmma"].items()) for d in dims]
 
 
-@pytest.mark.parametrize("sched", FLASH_SCHEDULES, ids=[
-    f"{bq}x{bk}-s{st}" for bq, bk, st in FLASH_SCHEDULES])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sched,d", FLASH_SCHEDULES, ids=[
+    f"{bq}x{bk}-s{st}-d{d}" for (bq, bk, st), d in FLASH_SCHEDULES])
 def test_cuda_flash_every_wgmma_schedule_matches_plain_version(cuda, sched, d):
     from repro_torch.core.tile_config import FlashAttentionConfig
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -252,6 +293,29 @@ def test_cuda_flash_every_wgmma_schedule_matches_plain_version(cuda, sched, d):
     want = ref.flash_attention_ref(q, k, v, kv_start=kv_start)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 160])
+def test_cuda_flash_fma_head_dims_80_and_160(cuda, d, dtype):
+    """The fma kernel (the float32 exactness passes) at zamba2-2.7b's and
+    stablelm-12b's head dims, ragged rows and S < S_kv included."""
+    from repro_torch.core.tile_config import FlashAttentionConfig
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    for b, s, skv, h, kvh, ks in ((4, 300, 300, 32, 8, [0, 7, 150, 300]),
+                                  (2, 37, 100, 8, 8, [3, 0])):
+        q, k, v = _flash_operands(cuda, d + s, b, s, skv, h, kvh, d, None)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        kv_start = torch.tensor(ks, dtype=torch.int32, device=cuda)
+        for cfg in (flash_tiles(torch.float32, s, skv, d),
+                    FlashAttentionConfig(32, 64)):
+            before = dict(flash_attention_cuda.launches_by_path)
+            got = flash_attention_cuda(q, k, v, config=cfg, kv_start=kv_start)
+            assert flash_attention_cuda.launches_by_path["fma"] == before["fma"] + 1
+            want = ref.flash_attention_ref(q, k, v, kv_start=kv_start)
+            torch.cuda.synchronize()
+            tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else BF16
+            torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 def test_cuda_flash_operands_wgmma_does_not_take_run_fma(cuda):

@@ -24,6 +24,8 @@ from repro_torch.core.tile_config import (  # noqa: E402
     flash_tiles, gemm_tiles)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.configs.catalog import ARCHITECTURES as PORT_ARCHS  # noqa: E402
+from repro_torch.models.model import PORTED_FAMILIES  # noqa: E402
 from repro_torch.models.params import params_from_numpy  # noqa: E402
 
 F32 = dict(atol=1e-5, rtol=1e-5)
@@ -363,3 +365,56 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     after = {n: _build._target(n) for n in _build.SOURCES}
     assert all(before[n] != after[n] for n in _build.SOURCES)
+
+
+# every catalog arch the port admits, and zamba2-2.7b's head dim 80 (hybrid,
+# queued): its (d, H, KV) at full width
+_ADMITTED = sorted(name for name, cfg in PORT_ARCHS.items()
+                   if cfg.family in PORTED_FAMILIES or cfg.family == "hybrid")
+
+
+@pytest.mark.parametrize("arch", _ADMITTED)
+def test_flash_schedule_is_instantiated_at_every_admitted_head_dim(arch):
+    """The bf16 schedule ``flash_tiles`` picks for the arch's prefill is
+    instantiated at its head dim in ``dispatch_wgmma``'s lines, and the
+    wrapper's path rule sends its (H, KV) group there; the f32 schedule
+    (the exactness passes) is instantiated at its head dim in
+    ``dispatch_fma``'s.  Before head dims 80 and 160 were instantiated,
+    stablelm-12b (d 160) had neither and its flash prefill raised."""
+    from repro_torch.kernels.flash_attention import (
+        _inner_contiguous, instantiated_head_dims, wgmma_takes)
+    cfg = PORT_ARCHS[arch]
+    d, h, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    dims = instantiated_head_dims()
+    for s in (8, 256, 1024, 1500, 4096):
+        tile = flash_tiles(torch.bfloat16, s, s, d)
+        assert tile.kernel == "wgmma"
+        assert d in dims["wgmma"][(tile.bq, tile.bk, tile.stages)], tile.schedule
+        f32 = flash_tiles(torch.float32, s, s, d)
+        assert d in dims["fma"][(f32.bq, f32.bk, f32.stages)], f32.schedule
+    q = _inner_contiguous(torch.zeros(2, 40, h, d, dtype=torch.bfloat16))
+    k = _inner_contiguous(torch.zeros(2, 40, kvh, d, dtype=torch.bfloat16))
+    assert wgmma_takes(q, k, k, d ** -0.5)
+
+
+def test_whisper_unembed_takes_decode_and_wgmma():
+    """whisper-large-v3's untied head (1280 x 51866, 51866 % 8 = 2) is
+    stored K-major, which ``_aligned`` takes for ``decode`` at M = 8 and
+    for ``wgmma`` at a prefill M; the row-major layout of the same weight
+    would fall to WMMA for both."""
+    from repro_torch.kernels.gemm import _aligned
+    from repro_torch.models import build_model
+    spec = build_model(PORT_ARCHS["whisper-large-v3"]).template["lm_head"]
+    d, vocab = spec.shape
+    assert spec.kmajor and vocab % 8
+    head = torch.empty((vocab, d), dtype=torch.bfloat16).t()     # the layout
+    row_major = torch.empty((d, vocab), dtype=torch.bfloat16)
+    for m in (8, 8 * 300):
+        tile = gemm_tiles(torch.bfloat16, m, d, vocab)
+        assert tile.kernel == ("decode" if m == 8 else "wgmma")
+        a = torch.empty((m, d), dtype=torch.bfloat16)
+        assert _aligned(tile.kernel, a.data_ptr(), d, head.data_ptr(),
+                        head.stride(0), head.stride(1), 1, d, vocab)
+        assert not _aligned(tile.kernel, a.data_ptr(), d, row_major.data_ptr(),
+                            row_major.stride(0), row_major.stride(1), 0, d,
+                            vocab)

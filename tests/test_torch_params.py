@@ -76,10 +76,10 @@ def test_bridge_takes_uint16_views_of_bf16():
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "chatglm3-6b",
                                   "stablelm-12b", "yi-9b", "olmoe-1b-7b",
                                   "moonshot-v1-16b-a3b",
-                                  "llama-3.2-vision-11b"])
+                                  "llama-3.2-vision-11b", "whisper-large-v3"])
 def test_template_matches_the_reference(arch):
-    """Dense, MoE and VLM configs: same tree, shapes, init rules and scales
-    as JAX."""
+    """Dense, MoE, VLM and audio configs: same tree, shapes, init rules and
+    scales as JAX."""
     jt = jax_build_model(ARCHITECTURES[arch].reduced()).template
     jflat = {"/".join(str(getattr(k, "key", k)) for k in path): spec
              for path, spec in jax.tree_util.tree_flatten_with_path(
@@ -111,6 +111,6 @@ def test_init_is_seeded_and_at_reference_scales():
 
 
 def test_build_model_refuses_unported_families():
-    for arch in ("mamba2-130m", "whisper-large-v3", "zamba2-2.7b"):
+    for arch in ("mamba2-130m", "zamba2-2.7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(PORT_ARCHS[arch].reduced())
