@@ -86,11 +86,30 @@ Phases, each printing one JSON line:
    batched prefill, the encoder's share of a prefill's device time, and a
    float32 pass at full width and 2 + 2 layers whose tokens must equal the
    per-prompt oracle's.
+10. ``serve_ssm`` — full-width mamba2-130m (24 attention-free Mamba2
+   layers, d 768, state 128, tied head over 50280 tokens) in bf16: the 12
+   requests and the prefix traffic, each twice on fresh engines, on the
+   wave scheduler the engine is forced onto (asserted; the prefix cache is
+   off there: no hit), every GEMM on decode or wgmma, one host transfer a
+   wave, equal tokens on repeat; finite logits of one batched prefill; a
+   float32 pass at full width and 2 layers whose tokens must equal the
+   per-prompt oracle's.
+11. ``serve_hybrid`` — full-width zamba2-2.7b (9 units of 6 Mamba2 layers
+   and one shared attention block at head dim 80, d 2560, untied head over
+   32000 tokens) in bf16 with flash prefill: the same three traffics and
+   checks as serve_moe (>= 4 full and >= 7 partial warm hits, whose
+   restores include the SSM and conv states), finite logits of one batched
+   prefill, and a float32 pass at full width and one unit (6 Mamba2 layers
+   and the shared block) whose continuous and wave tokens must equal the
+   per-prompt oracle's.
 
 The kernels phase also holds whisper's shapes (d 1280 projections with
 biases and the GELU MLP at M = 8, 8 x 256 and the encoder's 8 x 1500, the
-unembed at N = 51866) and K2 at (8, 256, 20, 20, 64), stablelm-12b's (8,
-256, 32, 8, 160) and zamba2-2.7b's head dim 80, (8, 256, 32, 32, 80).
+unembed at N = 51866), mamba2-130m's (in_proj 768 x 3352, out_proj, the
+tied unembed at N = 50280) and zamba2-2.7b's (in_proj 2560 x 10448,
+out_proj, the shared block's projections and MLP, the unembed at N =
+32000), and K2 at (8, 256, 20, 20, 64), stablelm-12b's (8, 256, 32, 8,
+160) and zamba2-2.7b's head dim 80, (8, 256, 32, 32, 80).
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -255,6 +274,32 @@ def gemm_cases(torch):
                   51866, bf, True, None, f32, False, True))
     cases.append(("whisper edge unembed at prefill M (K-major, N = 51866)",
                   8 * 256, dw, 51866, bf, True, None, f32, False, False))
+    # mamba2-130m (serve_ssm): in_proj 768 x 3352 (N a multiple of 8, not of
+    # 64: every tile row ends in an N tail), out_proj 1536 x 768 at M = 8
+    # and 8 x 256; the tied unembed (B = embedding.T, N = 50280)
+    dm, im = 768, 1536
+    for m, phase in ((8, "decode"), (8 * 256, "prefill")):
+        for name, k, n in (("in_proj", dm, 2 * im + 2 * 128 + 24),
+                           ("out_proj", im, dm)):
+            cases.append((f"mamba {phase} {name}", m, k, n, bf, False, None,
+                          bf, False, True))
+    cases.append(("mamba unembed (tied, B=emb.T, N = 50280, f32 out)", 8, dm,
+                  50280, bf, True, None, f32, False, True))
+    # zamba2-2.7b (serve_hybrid): the Mamba2 in_proj 2560 x 10448 (an N
+    # tail again) and out_proj 5120 x 2560, the shared block's q/k/v/o
+    # (MHA, 2560 x 2560) and SwiGLU (10240), at M = 8 and 8 x 256; the
+    # untied unembed (N = 32000)
+    dz, iz, ffz = 2560, 5120, 10240
+    zproj = [("in_proj", dz, 2 * iz + 2 * 64 + 80, None),
+             ("out_proj", iz, dz, None), ("q/k/v/o", dz, dz, None),
+             ("gate+silu", dz, ffz, "silu"), ("up", dz, ffz, None),
+             ("down", ffz, dz, None)]
+    for m, phase in ((8, "decode"), (8 * 256, "prefill")):
+        for name, k, n, act in zproj:
+            cases.append((f"zamba {phase} {name}", m, k, n, bf, False, act,
+                          bf, False, True))
+    cases.append(("zamba unembed (f32 out)", 8, dz, 32000, bf, False, None,
+                  f32, False, True))
     for (name, k, n) in (("k/v", d, kvd), ("down", ff, d)):
         for m in (1, 3, 8, 16):
             cases.append((f"decode edge {name} M={m} silu", m, k, n, bf,
@@ -351,6 +396,7 @@ def model_of(label: str) -> str:
                           ("vlm", "llama-3.2-vision-11b"),
                           ("whisper", "whisper-large-v3"),
                           ("stablelm", "stablelm-12b"),
+                          ("mamba", "mamba2-130m"),
                           ("zamba", "zamba2-2.7b")):
         if label.startswith(prefix):
             return model
@@ -385,8 +431,8 @@ def flash_cases():
     """(label, B, S, Skv, H, KV, d, dtype, kv_start, main_path).  The main
     paths' prefill shapes first (llama3.2-1b; olmoe-1b-7b: MHA, group 1,
     d = 128; llama-3.2-vision-11b: group 4, d = 128; whisper-large-v3's
-    decoder: group 1, d = 64; stablelm-12b: group 4, d = 160); zamba2-2.7b's
-    d = 80 (hybrid, not served yet), the f32 kernel at d = 160 and the two
+    decoder: group 1, d = 64; stablelm-12b: group 4, d = 160; zamba2-2.7b's
+    shared block: group 1, d = 80); the f32 kernel at d = 160 and the two
     long prompts are not on a serve path (its prompts are at most 300
     tokens)."""
     ragged = [0, 17, 100, 255, 256, 3, 64, 200]     # 256: fully masked row
@@ -401,8 +447,8 @@ def flash_cases():
          256, 256, 20, 20, 64, "bfloat16", ragged, True),
         ("stablelm prefill (8,256,32,8,160) ragged + fully masked row", 8,
          256, 256, 32, 8, 160, "bfloat16", ragged, True),
-        ("zamba d 80 (8,256,32,32,80) ragged + fully masked row", 8, 256,
-         256, 32, 32, 80, "bfloat16", ragged, False),
+        ("zamba prefill d 80 (8,256,32,32,80) ragged + fully masked row", 8,
+         256, 256, 32, 32, 80, "bfloat16", ragged, True),
         ("f32 d 160 (4,300,32,8,160) ragged", 4, 300, 300, 32, 8, 160,
          "float32", [0, 7, 150, 300], False),
         ("non-divisible S=200 + fully masked row", 8, 200, 200, 32, 8, 64,
@@ -1015,23 +1061,44 @@ def serve_runs(torch, out, model, params, prompts, cold, warm, extra=None):
     every prefill attention on the wgmma flash kernel, one host transfer
     per chunk or wave, 32 in-vocabulary tokens a request, equal tokens on
     repeat.  ``extra``: each drain's ``extra_inputs`` (row i for request
-    i), with which the prefix cache is not consulted (no hit)."""
+    i), with which the prefix cache is not consulted (no hit); without
+    them the warm drain must make >= 4 full and >= 7 partial hits, each full
+    hit's first token equal to its cold one.  The ssm family (no
+    attention) runs the 12 requests and the prefix traffic on the wave
+    scheduler it is forced onto, without flash launches and with the
+    prefix cache off."""
     from repro_torch import kernels
     from repro_torch.serve import Engine, Request, ServeConfig
     vocab = model.cfg.vocab_size
+    ssm = model.cfg.family == "ssm"
 
     def generate(eng):
         return (eng.generate(prompts, 32, extra_inputs=extra),
                 sum(len(p) for p in prompts))
 
-    def prefix_cache(eng):
-        got = [r.tokens for traffic in (cold, warm)
-               for r in drain(eng, Request, traffic, 32, extra)]
-        return got, sum(len(p) for p in cold + warm)
+    warm_seen = {}
 
-    runs = (("continuous", generate, {}),
-            ("wave", generate, {"scheduler": "wave"}),
-            ("prefix_cache", prefix_cache, {"page_size": 16}))
+    def prefix_cache(eng):
+        cold_res = drain(eng, Request, cold, 32, extra)
+        before = dict(eng.stats()["prefix_cache"])
+        warm_res = drain(eng, Request, warm, 32, extra)
+        after = eng.stats()["prefix_cache"]
+        warm_seen["hits"] = {k: after[k] - before[k] for k in
+                             ("hits_full", "hits_partial", "misses")}
+        first_cold = {tuple(p): r.tokens[0] for p, r in zip(cold, cold_res)}
+        full = [(p, r) for p, r in zip(warm, warm_res)
+                if r.prefix_hit == "full"]
+        warm_seen["full_hit_first_tokens_equal_cold"] = all(
+            r.tokens[0] == first_cold[tuple(p)] for p, r in full)
+        return ([r.tokens for r in cold_res + warm_res],
+                sum(len(p) for p in cold + warm))
+
+    # the ssm family's engine asked for the default continuous scheduler
+    # runs the wave one (forced)
+    runs = ((("wave", generate, {}),) if ssm else
+            (("continuous", generate, {}),
+             ("wave", generate, {"scheduler": "wave"})))
+    runs += (("prefix_cache", prefix_cache, {"page_size": 16}),)
     for name, traffic, kw in runs:
         res, toks = {}, []
         for rep in range(2):
@@ -1048,7 +1115,12 @@ def serve_runs(torch, out, model, params, prompts, cold, warm, extra=None):
             st = eng.stats()
             assert gemm["decode"] > 0 and gemm["wgmma"] > 0, (name, gemm)
             assert gemm["wmma"] == 0 and gemm["fma"] == 0, (name, gemm)
-            assert flash["wgmma"] > 0 and flash["fma"] == 0, (name, flash)
+            if ssm:
+                assert sum(flash.values()) == 0, (name, flash)
+                assert st["scheduler"] == "wave", (name, st["scheduler"])
+                assert st["scheduler_forced"] == "no self-attention KV cache"
+            else:
+                assert flash["wgmma"] > 0 and flash["fma"] == 0, (name, flash)
             assert st["device_transfers"] == st["chunks"] + st["waves"] > 0, st
             assert all(len(o) == 32 and all(0 <= t < vocab for t in o)
                        for o in got)
@@ -1068,16 +1140,23 @@ def serve_runs(torch, out, model, params, prompts, cold, warm, extra=None):
                     / st["decode_seconds"],
                     chunks=st["chunks"], waves=st["waves"],
                     device_transfers=st["device_transfers"],
+                    scheduler=st["scheduler"],
+                    scheduler_forced=st["scheduler_forced"],
                     gemm_launches_by_path=gemm, flash_launches_by_path=flash,
                     launches=kernels.launch_counts(),
                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
                 if name == "prefix_cache":
                     pc = st["prefix_cache"]
-                    if extra:
+                    if ssm:
+                        assert not pc["enabled"], pc
+                    if extra or ssm:
                         assert pc["hits_full"] + pc["hits_partial"] == 0, pc
                     else:
-                        assert pc["hits_full"] >= 4, pc
-                        assert pc["hits_partial"] >= 7, pc
+                        hits = warm_seen["hits"]
+                        assert hits["hits_full"] >= 4, hits
+                        assert hits["hits_partial"] >= 7, hits
+                        assert warm_seen["full_hit_first_tokens_equal_cold"]
+                        res["warm"] = dict(warm_seen)
                     res["prefix_cache"] = {k: pc[k] for k in (
                         "hits_full", "hits_partial", "misses")}
             del eng
@@ -1100,10 +1179,11 @@ def finite_prefill(torch, model, params, prompts, extra=None):
     return batch
 
 
-def f32_exactness(torch, cfg32, rng, extra_fn=None):
+def f32_exactness(torch, cfg32, rng, extra_fn=None,
+                  schedulers=("continuous", "wave")):
     """Full width at ``cfg32``'s depth in float32 (flash through the fma
-    kernel): the continuous and wave engines' tokens equal the per-prompt
-    oracle's for 6 prompts of 5-200 tokens."""
+    kernel): the engines' tokens on each of ``schedulers`` equal the
+    per-prompt oracle's for 6 prompts of 5-200 tokens."""
     from repro_torch.models import build_model
     from repro_torch.serve import Engine, ServeConfig, generate_per_prompt
     m32 = build_model(cfg32)
@@ -1114,12 +1194,12 @@ def f32_exactness(torch, cfg32, rng, extra_fn=None):
     want = generate_per_prompt(m32, p32, prompts32, 8, max_len=512,
                                extra_inputs=extra)
     f = {"layers": cfg32.num_layers, "requests": len(prompts32)}
-    for sched in ("continuous", "wave"):
-        got = Engine(m32, p32, ServeConfig(
-            max_batch=4, max_len=512, decode_chunk=8,
-            scheduler=sched)).generate(prompts32, 8, extra_inputs=extra)
+    for sched in schedulers:
+        eng = Engine(m32, p32, ServeConfig(
+            max_batch=4, max_len=512, decode_chunk=8, scheduler=sched))
+        got = eng.generate(prompts32, 8, extra_inputs=extra)
         assert got == want, (f"{cfg32.name} f32 {sched}", got, want)
-        f[f"{sched}_equal_oracle"] = True
+        f[f"{eng.stats()['scheduler']}_equal_oracle"] = True
     del p32, extra
     free_card(torch)
     return f
@@ -1317,6 +1397,51 @@ def phase_serve_audio(torch, ctx):
     return out
 
 
+def phase_serve_ssm(torch, ctx):
+    """Full-width mamba2-130m (24 Mamba2 layers, d 768, state 128, the tied
+    head over 50280 tokens) in bf16 through ``serve_runs``: the 12 requests
+    and the prefix traffic on the wave scheduler it is forced onto; finite
+    logits of one batched ragged prefill; then a float32 pass at full width
+    and 2 layers whose wave tokens equal the per-prompt oracle's."""
+    import dataclasses
+
+    out, cfg, model, params, prompts, cold, warm, rng = family_phase_setup(
+        torch, ctx, "mamba2-130m")
+    out = {"phase": "serve_ssm", "main_run": "wave", **out}
+    serve_runs(torch, out, model, params, prompts, cold, warm)
+    finite_prefill(torch, model, params, prompts[:8])
+    del params
+    free_card(torch)
+    out["f32_pass"] = f32_exactness(torch, dataclasses.replace(
+        cfg, dtype="float32", num_layers=2), rng, schedulers=("wave",))
+    emit(out)
+    return out
+
+
+def phase_serve_hybrid(torch, ctx):
+    """Full-width zamba2-2.7b (9 units of 6 Mamba2 layers, d 2560, state
+    64, and the one shared attention block at head dim 80) in bf16 with
+    flash prefill through ``serve_runs`` (the SSM and conv states are
+    resident fixed leaves of the continuous engine and the prefix cache's
+    full hits restore them); finite logits of one batched ragged prefill;
+    then a float32 pass at full width and one unit (6 Mamba2 layers and
+    the shared block) whose continuous and wave tokens equal the
+    per-prompt oracle's."""
+    import dataclasses
+
+    out, cfg, model, params, prompts, cold, warm, rng = family_phase_setup(
+        torch, ctx, "zamba2-2.7b")
+    out = {"phase": "serve_hybrid", "head_dim": cfg.resolved_head_dim, **out}
+    serve_runs(torch, out, model, params, prompts, cold, warm)
+    finite_prefill(torch, model, params, prompts[:8])
+    del params
+    free_card(torch)
+    out["f32_pass"] = f32_exactness(torch, dataclasses.replace(
+        cfg, dtype="float32", num_layers=cfg.attn_period), rng)
+    emit(out)
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1340,11 +1465,12 @@ def summarize(rows, launches, paths, features, families):
     """One entry per kernel: its main-path cases summed (each model's shapes
     once; ``by_model`` splits the sums), and the same sums per path with the
     serve phase's launches by path.  ``launches`` sums the main-path runs of
-    every model (the serve phase, and the continuous run of serve_moe,
-    serve_vlm, serve_stablelm and serve_audio, each with the counts set to
-    0 before it); ``launches_by_run`` splits it, and ``launches_by_pass``
-    has the launches by path of every serve_features, serve_moe,
-    serve_vlm, serve_stablelm and serve_audio run."""
+    every model (the serve phase; the continuous run of serve_moe,
+    serve_vlm, serve_stablelm, serve_audio and serve_hybrid; serve_ssm's
+    forced wave run; each with the counts set to 0 before it);
+    ``launches_by_run`` splits it, and ``launches_by_pass`` has the
+    launches by path of every serve_features run and every run of the
+    family phases."""
     out = []
     family_runs = {f"{fam['phase']} {k}": v for fam in families
                    for k, v in fam.items()
@@ -1352,8 +1478,8 @@ def summarize(rows, launches, paths, features, families):
     for kname, route_src, repl, repl_fn in KERNELS:
         mine = [r for r in rows if r["name"] == kname and r["main_path"]]
         by_run = {"serve": launches[kname]}
-        by_run.update({fam["phase"]: fam["continuous"]["launches"][kname]
-                       for fam in families})
+        by_run.update({fam["phase"]: fam[fam.get("main_run", "continuous")]
+                       ["launches"][kname] for fam in families})
         entry = {"name": kname, "route": "cuda", "source": route_src,
                  "replaces": repl, "replaces_function": repl_fn,
                  "launches": sum(by_run.values()), "launches_by_run": by_run,
@@ -1407,7 +1533,8 @@ def main(argv=None) -> int:
     launches, paths, ctx = phase_serve(torch)
     features = phase_serve_features(torch, ctx)
     families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx),
-                phase_serve_stablelm(torch, ctx), phase_serve_audio(torch, ctx)]
+                phase_serve_stablelm(torch, ctx), phase_serve_audio(torch, ctx),
+                phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx)]
     print(card, flush=True)
     emit({"kernels": summarize(rows, launches, paths, features, families)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

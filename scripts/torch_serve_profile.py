@@ -7,9 +7,10 @@
 
 Serves the same workload as ``chip_smoke.py``'s serve phase (full-width
 llama3.2-1b in bf16, flash prefill, 12 seeded requests, 8 slots,
-``max_new=32``; ``--arch olmoe-1b-7b``, ``llama-3.2-vision-11b`` or
-``whisper-large-v3`` serves that model on it, the last two with seeded
-random image or frame embeddings) once
+``max_new=32``; ``--arch olmoe-1b-7b``, ``llama-3.2-vision-11b``,
+``whisper-large-v3``, ``mamba2-130m`` or ``zamba2-2.7b`` serves that model
+on it, the vlm and audio ones with seeded random image or frame
+embeddings, mamba2-130m on the wave scheduler it is forced onto) once
 to warm up, ``--walls`` times unprofiled, then once
 under ``torch.profiler``.  ``--scheduler wave`` serves it on the wave
 scheduler, ``--kv-int8`` with an int8 KV cache (which runs the wave

@@ -1,14 +1,15 @@
 """Architecture catalog: ``--arch <id>`` resolves here.
 
-The same ten configurations as the JAX package's catalog.  The ``dense``,
-``moe``, ``vlm`` and ``audio`` families have a model path in the port so
-far; ``build_model`` refuses the others (see ``repro_torch.models.model``).
+The same ten configurations as the JAX package's catalog; every family
+(dense, moe, vlm, audio, ssm, hybrid) has a model path in the port.
 """
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.llama3_2_1b import CONFIG as _llama1b
 from repro_torch.configs.llama_3_2_vision_11b import CONFIG as _vlm
+from repro_torch.configs.mamba2_130m import CONFIG as _mamba
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
 from repro_torch.configs.whisper_large_v3 import CONFIG as _whisper
+from repro_torch.configs.zamba2_2_7b import CONFIG as _zamba
 
 _moonshot = ModelConfig(
     name="moonshot-v1-16b-a3b", family="moe",
@@ -31,20 +32,6 @@ _yi = ModelConfig(
     name="yi-9b", family="dense",
     num_layers=48, d_model=4096, num_heads=32, num_kv_heads=4,
     d_ff=11008, vocab_size=64000, rope_theta=5000000.0,
-)
-_mamba = ModelConfig(
-    name="mamba2-130m", family="ssm",
-    num_layers=24, d_model=768, num_heads=0, num_kv_heads=0, d_ff=0,
-    vocab_size=50280, use_rope=False,
-    ssm_state=128, ssm_expand=2, ssm_head_dim=64, ssm_chunk=128,
-    tie_embeddings=True,
-)
-_zamba = ModelConfig(
-    name="zamba2-2.7b", family="hybrid",
-    num_layers=54, d_model=2560, num_heads=32, num_kv_heads=32,
-    d_ff=10240, vocab_size=32000, rope_theta=10000.0,
-    ssm_state=64, ssm_expand=2, ssm_head_dim=64, ssm_chunk=128,
-    attn_period=6,
 )
 
 ARCHITECTURES = {c.name: c for c in (

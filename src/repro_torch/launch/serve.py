@@ -10,8 +10,9 @@ random, drawn from seed 0.  ``--scheduler``, ``--page-size``,
 ``--capacity-tokens``, ``--decode-chunk`` and ``--no-prefix-cache`` set the
 engine's ``ServeConfig``; ``--temperature`` samples instead of greedy
 decoding; ``--kv-int8`` serves with an int8 KV cache (which runs the wave
-scheduler); ``--server`` submits every prompt to a threaded ``Server`` with
-a stream callback instead of one batched ``generate`` call.  A model with
+scheduler, as the ssm family ``--arch mamba2-130m`` does); ``--server``
+submits every prompt to a threaded ``Server`` with a stream callback
+instead of one batched ``generate`` call.  A model with
 extra inputs (the vlm family's image embeddings, the audio family's frame
 embeddings) gets random ones drawn from seed 0, one row a prompt, like its
 weights (the reference's launcher gives zeros), and cannot be served

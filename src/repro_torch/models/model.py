@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike
+from repro_torch.models import hybrid as H
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params, param_count
 
@@ -32,21 +33,26 @@ class Model:
     def param_count(self) -> int:
         return param_count(self.template)
 
+    # family dispatch ---------------------------------------------------
+    def _mod(self):
+        return H if self.cfg.family in SSM_FAMILIES else T
+
     def forward(self, params, batch: Dict[str, torch.Tensor]):
         """-> (logits (B, S, V) f32, aux_loss)."""
-        return T.forward(self.cfg, params, batch)
+        return self._mod().forward(self.cfg, params, batch)
 
     def init_cache(self, batch: int, max_len: int, dtype=None,
                    device: DeviceLike = None):
-        return T.init_cache(self.cfg, batch, max_len, dtype, device)
+        return self._mod().init_cache(self.cfg, batch, max_len, dtype, device)
 
     def prefill(self, params, batch, cache):
         """``batch`` may carry ``kv_start`` (B,) left-pad offsets for ragged
-        batches; see transformer.prefill."""
-        return T.prefill(self.cfg, params, batch, cache)
+        batches; see transformer.prefill and hybrid.prefill."""
+        return self._mod().prefill(self.cfg, params, batch, cache)
 
     def decode_step(self, params, tokens, cache, offset: int, kv_start=None):
-        return T.decode_step(self.cfg, params, tokens, cache, offset, kv_start)
+        return self._mod().decode_step(self.cfg, params, tokens, cache,
+                                       offset, kv_start)
 
     def extra_inputs(self, batch_size: int) -> Dict[str, TensorSpec]:
         """Model inputs beyond the tokens (the modality frontends' stub
@@ -63,20 +69,15 @@ class Model:
         return {}
 
 
-#: families with a model path in the port
-PORTED_FAMILIES = ("dense", "moe", "vlm", "audio")
-#: where ROADMAP.md queues each family still to port
-UNPORTED_FAMILIES = {"ssm": "queue 1, item 2", "hybrid": "queue 1, item 3"}
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        where = UNPORTED_FAMILIES.get(cfg.family, "queue 1")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; {PORTED_FAMILIES} are "
-            f"(ROADMAP.md {where})")
+#: families built by ``models.hybrid``; the rest by ``models.transformer``
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    check_ported(cfg)
-    return Model(cfg=cfg, template=T.template(cfg))
+    if cfg.family in SSM_FAMILIES:
+        tpl = H.template(cfg)
+    elif cfg.family in ("dense", "moe", "vlm", "audio"):
+        tpl = T.template(cfg)
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return Model(cfg=cfg, template=tpl)

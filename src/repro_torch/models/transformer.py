@@ -106,7 +106,9 @@ def _units(cfg: ModelConfig):
     return cfg.num_layers // cfg.cross_attn_period, cfg.cross_attn_period - 1
 
 
-def template(cfg: ModelConfig):
+def embed_template(cfg: ModelConfig) -> Dict[str, Any]:
+    """The embedding, the final norm and (untied) the head: every family's
+    ends of the stack."""
     t: Dict[str, Any] = {
         "embedding": ParamSpec((cfg.vocab_size, cfg.d_model),
                                ("vocab", "embed"), scale=0.02),
@@ -116,6 +118,11 @@ def template(cfg: ModelConfig):
         t["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                  ("embed", "vocab"),
                                  kmajor=cfg.vocab_size % 8 != 0)
+    return t
+
+
+def template(cfg: ModelConfig):
+    t = embed_template(cfg)
     if cfg.family == "vlm":
         units, per_unit = _units(cfg)
         t["units"] = {

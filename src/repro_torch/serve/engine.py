@@ -16,16 +16,18 @@ with two schedulers sharing one model path.
   into free slots of one dense cache (``init_cache(max_batch, max_len)``,
   allocated once per engine and reused across waves: stale columns are
   never read, thanks to per-slot ``kv_start`` and length masking), and
-  evicted when the wave ends.  int8-KV models always take this path.
+  evicted when the wave ends.  int8-KV models and the ssm family (no
+  self-attention KV to page) always take this path.
 * **One host transfer per chunk or wave** — the reference ends its
   ``while_loop`` early once every row is done; reading that flag here would
   be a host sync per token.  So a chunk always runs its steps (a wave runs
   ``max(max_new)`` of them, the most any of its rows can take), with
   finished rows masked exactly as the reference's loop body masks them
   (``buf``, ``lens``, ``done``).  Steps past the point where every row is
-  done only write KV that nothing reads and advance a ``cur`` no live row
-  carries, so the tokens are the same.  The token buffer and counts reach
-  the host in one copy.
+  done only write KV and SSM state that nothing reads (a finished row's
+  slot is prefilled anew before it is read again) and advance a ``cur`` no
+  live row carries, so the tokens are the same.  The token buffer and
+  counts reach the host in one copy.
 * **Sampling** — greedy is exact ``argmax``; ``temperature > 0`` samples by
   Gumbel-max, ``argmax(logits / T + G)`` (how ``jax.random.categorical``
   samples), with ``G`` drawn on the engine's device from a
@@ -39,8 +41,10 @@ with two schedulers sharing one model path.
   copy-on-write of the tail page, and the first token sampled from the
   cached last-position logits: bit-exact under greedy decoding); a
   page-aligned partial hit shares the prefix pages and re-runs prefill with
-  the shared columns' writes redirected to the TRASH page.  LRU eviction
-  yields pages before live rows are preempted.
+  the shared columns' writes redirected to the TRASH page.  A full hit
+  also restores the row's fixed leaves (the hybrid's SSM and conv states)
+  from a snapshot taken after its prefill.  LRU eviction yields pages
+  before live rows are preempted.
 * **Streaming** — a request's ``stream`` callback gets one
   :class:`~repro_torch.serve.api.StreamEvent` per token when its tokens
   reach the host (each chunk boundary, or the wave's single transfer) and
@@ -55,12 +59,13 @@ with two schedulers sharing one model path.
   ``extra_inputs`` (the vlm family's image embeddings, the audio family's
   frame embeddings), one row per request (``Request.row``), placed at each
   request's slot of a prefill batch.  Cache leaves that are not paged (the
-  cross K/V of vlm and audio) live in one resident tree over the slots;
-  admission copies the admitted rows into it, and decode chunks read it
-  whole; a prefill's own cache holds only the ``"self"`` leaves.  The
+  cross K/V of vlm and audio, the hybrid's SSM and conv states) live in
+  one resident tree over the slots; admission copies the admitted rows
+  into it, a decode chunk reads it whole and keeps the tree its last step
+  returns; a prefill's own cache holds only the ``"self"`` leaves.  The
   prefix cache is skipped while extras are given.  Every cache leaf keeps
-  its leading dims (L, or U and P-1) and is indexed from the end: batch at
-  -4, tokens at -3.
+  its leading dims (L, or U and P-1, or U) and is indexed from the end:
+  batch at -4 (the conv window's at -3), tokens at -3.
 """
 from __future__ import annotations
 
@@ -74,7 +79,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.paged import paged_copy, paged_gather, paged_scatter
-from repro_torch.models.model import Model, check_ported
+from repro_torch.models.model import Model
 from repro_torch.serve import api, kv_pages
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.reference import greedy
@@ -209,7 +214,6 @@ class Engine:
 
     def __init__(self, model: Model, params, cfg: ServeConfig):
         self.device = resolve_device(cfg.device)
-        check_ported(model.cfg)
         if cfg.scheduler not in ("continuous", "wave"):
             raise ValueError(f"unknown scheduler {cfg.scheduler!r}; "
                              f"expected 'continuous' or 'wave'")
@@ -229,11 +233,16 @@ class Engine:
         self._chunk = chunk
         self._scheduler = cfg.scheduler
         self._scheduler_forced: Optional[str] = None
-        if cfg.scheduler == "continuous" and model.cfg.kv_quant:
-            # the paged pool holds plain K/V leaves; the {q, s} layout of an
-            # int8 cache keeps the dense wave path
-            self._scheduler = "wave"
-            self._scheduler_forced = "int8-quantized KV cache"
+        if cfg.scheduler == "continuous":
+            # the paged pool holds plain self-attention K/V leaves: a model
+            # without them (pure SSM) or with the {q, s} layout of an int8
+            # cache keeps the dense wave path
+            if model.cfg.family == "ssm":
+                self._scheduler = "wave"
+                self._scheduler_forced = "no self-attention KV cache"
+            elif model.cfg.kv_quant:
+                self._scheduler = "wave"
+                self._scheduler_forced = "int8-quantized KV cache"
         self._capacity_tokens = int(cfg.capacity_tokens
                                     or cfg.max_batch * cfg.max_len)
         self._page_size = min(max(int(cfg.page_size or DEFAULT_PAGE_SIZE), 1),
@@ -283,11 +292,12 @@ class Engine:
 
     # -- dense cache (wave) ---------------------------------------------------
     def _self_cache(self, max_len: int):
-        """The ``"self"`` leaves of ``init_cache(max_batch, max_len)``: all a
-        prefill reads of its cache argument (it makes the fixed leaves, the
-        cross K/V, anew)."""
-        return {"self": self.model.init_cache(
-            self.cfg.max_batch, max_len, device=self.device)["self"]}
+        """The ``"self"`` leaves of ``init_cache(max_batch, max_len)`` (none
+        for the ssm family): all a prefill reads of its cache argument (it
+        makes the fixed leaves, the cross K/V and the SSM states, anew)."""
+        cache = self.model.init_cache(self.cfg.max_batch, max_len,
+                                      device=self.device)
+        return {k: v for k, v in cache.items() if k == "self"}
 
     def _ensure_cache(self):
         """One dense ``init_cache(max_batch, max_len)`` per engine, reused by
@@ -302,9 +312,10 @@ class Engine:
     def _ensure_pool(self) -> None:
         """Allocate the paged pool once per engine: one flat token-axis
         buffer per "self" KV leaf, with the leaf's leading dims (L, or U and
-        P-1 for the vlm family), and the resident tree of the fixed leaves
-        (the vlm family's cross K/V, (U, max_batch, N_img, KV, hd)) that
-        admission row-scatters into."""
+        P-1 for the vlm family, U for the hybrid), and the resident tree of
+        the fixed leaves (the vlm family's cross K/V, (U, max_batch, N_img,
+        KV, hd); the hybrid's SSM and conv states, (U, P, max_batch, ...))
+        that admission row-scatters into."""
         if self._pools is not None:
             return
         self._alloc = kv_pages.PageAllocator(self._capacity_tokens,
@@ -854,6 +865,10 @@ class Engine:
         for pool, leaf in zip(self._pools, cache["self"]):
             paged_scatter(pool, sidx_t,
                           leaf.narrow(leaf.ndim - 3, width - chunk, chunk))
+        # the fixed leaves the chunk's last step returned (the hybrid's SSM
+        # and conv states move on every token), as the reference's chunk
+        # returns its new fixed tree
+        self._fixed = {k: cache[k] for k in self._fixed}
         self._cur = cur
         # The ONE device-to-host transfer of this chunk.
         host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()

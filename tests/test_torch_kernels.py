@@ -25,7 +25,6 @@ from repro_torch.core.tile_config import (  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.configs.catalog import ARCHITECTURES as PORT_ARCHS  # noqa: E402
-from repro_torch.models.model import PORTED_FAMILIES  # noqa: E402
 from repro_torch.models.params import params_from_numpy  # noqa: E402
 
 F32 = dict(atol=1e-5, rtol=1e-5)
@@ -367,10 +366,9 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     assert all(before[n] != after[n] for n in _build.SOURCES)
 
 
-# every catalog arch the port admits, and zamba2-2.7b's head dim 80 (hybrid,
-# queued): its (d, H, KV) at full width
-_ADMITTED = sorted(name for name, cfg in PORT_ARCHS.items()
-                   if cfg.family in PORTED_FAMILIES or cfg.family == "hybrid")
+# every catalog arch with attention (all but mamba2-130m): its (d, H, KV) at
+# full width
+_ADMITTED = sorted(name for name, cfg in PORT_ARCHS.items() if cfg.num_heads)
 
 
 @pytest.mark.parametrize("arch", _ADMITTED)

@@ -111,6 +111,14 @@ def test_init_is_seeded_and_at_reference_scales():
 
 
 def test_build_model_refuses_unported_families():
+    """Every family of the catalog builds (the ssm and hybrid ones through
+    ``models.hybrid``); a family the reference does not know raises
+    ``ValueError``, as the reference's ``build_model`` does."""
+    import dataclasses
     for arch in ("mamba2-130m", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(PORT_ARCHS[arch].reduced())
+        model = build_model(PORT_ARCHS[arch].reduced())
+        assert "embedding" in model.template and "ln_f" in model.template
+    bad = dataclasses.replace(PORT_ARCHS["llama3.2-1b"].reduced(),
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        build_model(bad)

@@ -139,17 +139,15 @@ def test_eos_stops_a_row(jax_params, oracle):
 
 
 def test_engine_rejects_what_is_not_ported(jax_params):
-    """Sampling, the prefix cache, the wave scheduler, the int8 cache and the
-    moe family are ported; the ssm family is not, by the factory or by the
-    Engine."""
-    from repro_torch.models.model import Model
+    """Every family is ported: the Engine takes a reduced mamba2 and puts
+    it on the wave scheduler (no self-attention KV to page), as the
+    reference does.  It still refuses requests it could never serve."""
     model, params, _ = _port("chunked", jax_params)
-    ssm = PORT_ARCHS["mamba2-130m"].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ssm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(Model(cfg=ssm, template=model.template), params,
-               ServeConfig(device="cpu"))
+    ssm = build_model(PORT_ARCHS["mamba2-130m"].reduced())
+    eng = Engine(ssm, ssm.init(0, device="cpu"), ServeConfig(device="cpu"))
+    st = eng.stats()
+    assert st["scheduler"] == "wave"
+    assert st["scheduler_forced"] == "no self-attention KV cache"
     eng = Engine(model, params, ServeConfig(max_len=16, device="cpu"))
     for bad in (Request(prompt=[], max_new_tokens=2),
                 Request(prompt=[1], max_new_tokens=0),
