@@ -4,14 +4,16 @@
     python scripts/torch_gemm_sweep.py [--reps 10] [--src DIR --table-only]
 
 For each GEMM shape of llama3.2-1b's serving path (decode M = 8, prefill
-M = 2048, the tied unembed) it times every candidate ``TileConfig`` of the
-kernel that regime uses (``decode``: ring depth x split count; ``wgmma``:
-tile width), the table's own pick and one ``torch.matmul`` as a yardstick,
+M = 2048, the tied unembed) it times the tuner's candidates
+(``core.tile_config.TuningSpace``: the regime's instantiated schedules by
+split count or raster grouping, the hand table's own pick among them) and
+one ``torch.matmul`` as a yardstick,
 each launch alone with CUDA events after an L2 flush, under both of
 ``chip_smoke.Timer``'s timers (``*_ms``: a dirty flush, as ``kernel_ms``;
 ``*_device_ms``: a clean flush and the device's time only).  It prints one
-JSON line per shape, then the card's name and power limit.  The table in
-``core/tile_config.py`` is set from the device-only times.
+JSON line per shape, then the card's name and power limit.  The hand
+table in ``core/tile_config.py`` was set from the device-only times; the
+committed per-shape table comes from ``scripts/torch_tune.py``.
 
 ``--src DIR --table-only`` times only the table's pick of another tree's
 ``repro_torch`` (e.g. an unpacked earlier commit's ``src/``) with this
@@ -21,7 +23,6 @@ card.  Needs a CUDA device; there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -43,23 +44,6 @@ SHAPES = (
 )
 
 
-def candidates(tile, k):
-    """The schedules of ``tile``'s kernel that ``gemm.cu`` instantiates
-    (read from its ``dispatch_*`` lines), by split count (``decode``) or
-    raster grouping (``wgmma``)."""
-    from repro_torch.core.tile_config import TileConfig
-    from repro_torch.kernels.gemm import instantiated_schedules
-    out = []
-    for bm, bk, bn, stages in sorted(instantiated_schedules()[tile.kernel]):
-        base = TileConfig(bm, bk, bn, kernel=tile.kernel, stages=stages)
-        if tile.kernel == "decode":
-            out += [dataclasses.replace(base, split_k=s)
-                    for s in (1, 2, 4, 8, 16, 32) if s <= -(-k // bk)]
-        else:
-            out += [dataclasses.replace(base, group_m=g) for g in (1, 16)]
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=10)
@@ -74,6 +58,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.core.tile_config import gemm_tiles
     from repro_torch.kernels.gemm import gemm_cuda
+    if not args.table_only:
+        from repro_torch.core.tile_config import TuningSpace
 
     if not torch.cuda.is_available():
         print("torch_gemm_sweep: no CUDA device available", file=sys.stderr)
@@ -89,7 +75,8 @@ def main(argv=None) -> int:
         table = gemm_tiles(torch.bfloat16, m, k, n)
         name = getattr(table, "schedule", table.label)
         times, device_times = {}, {}
-        for cand in [table] if args.table_only else candidates(table, k):
+        for cand in [table] if args.table_only else TuningSpace().candidates(
+                torch.bfloat16, m, k, n):
             run = lambda: gemm_cuda(a, b, config=cand, out_dtype=out)
             sched = getattr(cand, "schedule", cand.label)
             times[sched] = timer(run, reps=args.reps)

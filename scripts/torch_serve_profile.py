@@ -3,7 +3,7 @@
 
     python scripts/torch_serve_profile.py [--arch NAME] [--walls N] [--src DIR]
         [--out DIR] [--scheduler continuous|wave] [--kv-int8]
-        [--traffic random|shared-prefix]
+        [--traffic random|shared-prefix] [--walls-only]
 
 Serves the same workload as ``chip_smoke.py``'s serve phase (full-width
 llama3.2-1b in bf16, flash prefill, 12 seeded requests, 8 slots,
@@ -25,7 +25,10 @@ kernels, the decode attention's torch ops, the paged gather/scatter, and the
 rest), plus the top kernels by device time.  ``--src`` serves another
 tree's ``repro_torch`` (e.g. an unpacked earlier commit's ``src/``), so two
 versions alternate under one script.  ``--out`` also writes the Chrome
-trace there.  Needs a CUDA device; there is no CPU fallback.
+trace there; ``--walls-only`` stops after the unprofiled walls and
+prints them alone (the profiled serve of a large model takes minutes, a
+cost parent-vs-change wall pairs do not need).  Needs a CUDA device;
+there is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -88,6 +91,8 @@ def main(argv=None) -> int:
     ap.add_argument("--traffic", choices=["random", "shared-prefix"],
                     default="random",
                     help="shared-prefix: the prefix cache's warm drain")
+    ap.add_argument("--walls-only", action="store_true",
+                    help="print the unprofiled walls and skip the profile")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
     import numpy as np
@@ -173,6 +178,11 @@ def main(argv=None) -> int:
     timed()                                     # warm-up: builds, allocator
     walls = [timed()[0] for _ in range(args.walls)]   # the same run, unprofiled
     wall_plain = statistics.median(walls)
+    if args.walls_only:
+        print(json.dumps({"card": card, "arch": args.arch, "src": args.src,
+                          "walls_unprofiled": walls,
+                          "wall_seconds_unprofiled": wall_plain}), flush=True)
+        return 0
     prepare()
     torch.cuda.reset_peak_memory_stats()        # peak_mem_gb: this serve's
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

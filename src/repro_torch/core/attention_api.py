@@ -1,8 +1,11 @@
 """The single public flash-attention entry point: models route here.
 
-Mirror of :mod:`repro_torch.core.gemm_api` for the attention kernel: the
-schedule comes from the H100 tile table for the operands' dtype; a caller
-may override its (bq, bk) blocks.
+Mirror of :mod:`repro_torch.core.gemm_api` for the attention kernel: for
+CUDA operands the schedule comes from the tuning registry's
+``flash_attention`` entry for ``(S, S_kv, d)`` on the ambient hardware
+profile (exact, nearest, generic, then the profile's default tier, the
+H100 hand table); a caller may override its (bq, bk) blocks.  CPU
+operands run the plain version, which has no schedule.
 """
 from __future__ import annotations
 
@@ -11,8 +14,20 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.tile_config import flash_tiles
+from repro_torch.core.gemm_api import _ctx
+from repro_torch.core.hardware import launch_hardware
+from repro_torch.core.registry import GLOBAL_REGISTRY, LookupResult
+from repro_torch.core.tile_config import OP_FLASH_ATTENTION
 from repro_torch.kernels import flash_attention as fa_kernel
+
+
+def flash_tile_lookup(hardware: str, dtype, sq: int, skv: int,
+                      d: int) -> LookupResult:
+    """Resolve the flash-attention schedule of one ``(sq, skv, d)``
+    problem: the lookup the model path makes, named so that telemetry
+    (``Engine.stats()``) shares it."""
+    return GLOBAL_REGISTRY.lookup_op(OP_FLASH_ATTENTION, hardware, dtype,
+                                     (sq, skv, d))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -27,8 +42,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_start`` (B,) int32 masks each row's columns before it (left-padded
     ragged batches).  Returns (B, S, H, d) in ``q.dtype``.
     """
-    cfg = flash_tiles(q.dtype, q.shape[1], k.shape[1], q.shape[3])
-    if bq is not None or bk is not None:
-        cfg = dataclasses.replace(cfg, bq=bq or cfg.bq, bk=bk or cfg.bk)
+    cfg = None
+    if q.is_cuda:
+        cfg = flash_tile_lookup(
+            _ctx().hardware or launch_hardware(q.get_device()), q.dtype,
+            q.shape[1], k.shape[1], q.shape[3]).config
+        if bq is not None or bk is not None:
+            cfg = dataclasses.replace(cfg, bq=bq or cfg.bq, bk=bk or cfg.bk)
     return fa_kernel.flash_attention(q, k, v, config=cfg, causal=causal,
                                      kv_start=kv_start)

@@ -1,9 +1,17 @@
 """The single public matmul entry point: every model matmul goes here.
 
-The algorithm (``kernels/csrc/gemm.cu``) is written once; which tiles it
-runs with comes from the H100 tile table (``core.tile_config``), and which
-path runs follows the tensors' device: the CUDA kernel on the card, the
-plain version on the CPU.  Model code never mentions tiles.
+The algorithm (``kernels/csrc/gemm.cu``) is written once; which schedule
+it runs with comes from the tuning registry (``core.registry``: a tuned
+entry of the ambient hardware profile's table, else its default tier, the
+H100 hand table), and which path runs follows the tensors' device: the
+CUDA kernel on the card, the plain version on the CPU.  Model code never
+mentions tiles.
+
+The hardware profile a lookup is keyed by is the ambient
+:class:`ExecutionContext`'s ``hardware`` (``execution_context(hardware=
+...)``; the serve engine pins its own for a drain), else the detected one
+(``core.hardware.detect_hardware``; read once a process on the launch
+path, ``core.hardware.launch_hardware``).
 """
 from __future__ import annotations
 
@@ -12,17 +20,23 @@ import dataclasses
 import functools
 import math
 import threading
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import torch
 
-from repro_torch.core.tile_config import gemm_tiles
+from repro_torch.core.hardware import detect_hardware, launch_hardware
+from repro_torch.core.registry import GLOBAL_REGISTRY
+from repro_torch.core.tile_config import OP_GEMM
 from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass
 class ExecutionContext:
-    capture: Optional[List[Tuple[int, int, int]]] = None  # GEMM shape trace
+    #: every GEMM issued, as (m, k, n, B K-major, out dtype)
+    #: (``capture_gemm_shapes``)
+    capture: Optional[list] = None
+    #: hardware profile name the registry is keyed by; None: detected
+    hardware: Optional[str] = None
 
 
 _TLS = threading.local()
@@ -47,12 +61,26 @@ def execution_context(**overrides):
         _TLS.ctx = old
 
 
+def current_hardware(device=None) -> str:
+    """The hardware profile name of the ambient execution context: its
+    explicit ``hardware``, else ``$REPRO_TORCH_HARDWARE``, else detected
+    from ``device`` (None: the current card, or the CPU without one)."""
+    return _ctx().hardware or detect_hardware(device)
+
+
 @contextlib.contextmanager
-def capture_gemm_shapes():
-    """Collect every (m, k, n) issued under this scope."""
-    shapes: List[Tuple[int, int, int]] = []
-    with execution_context(capture=shapes):
-        yield shapes
+def capture_gemm_shapes(*, calls: bool = False):
+    """Collect every (m, k, n) issued under this scope; with ``calls``,
+    every ``(m, k, n, b_kmajor, out_dtype)``: what a measured sweep needs
+    to lay its operands out as the model does.  The list is filled when
+    the scope closes."""
+    records: list = []
+    out: list = []
+    try:
+        with execution_context(capture=records):
+            yield out
+    finally:
+        out.extend(records if calls else [r[:3] for r in records])
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -76,8 +104,14 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     m = math.prod(lead)
     x2 = x.reshape(m, k)
     if ctx.capture is not None:
-        ctx.capture.append((m, k, n))
-    config = gemm_tiles(x.dtype, m, k, n) if x.is_cuda else None
+        ctx.capture.append((m, k, n, w.stride(1) != 1 and w.stride(0) == 1,
+                            out_dtype or torch.promote_types(x.dtype,
+                                                             w.dtype)))
+    config = None
+    if x.is_cuda:
+        config = GLOBAL_REGISTRY.lookup_op(
+            OP_GEMM, ctx.hardware or launch_hardware(x.get_device()),
+            x.dtype, (m, k, n)).config
     out = ops.gemm(x2, w, config=config, bias=bias, activation=activation,
                    out_dtype=out_dtype)
     return out.reshape(*lead, n)

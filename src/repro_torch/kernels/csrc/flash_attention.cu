@@ -661,6 +661,9 @@ int dispatch_wgmma(const Args& a, int bq, int bk, int stages) {
   if (bq == 64 && bk == 128 && stages == 2) return wgmma_d<1, 128, 2, 64, 128>(a);
   if (bq == 128 && bk == 128 && stages == 2) return wgmma_d<2, 128, 2, 64, 80, 128>(a);
   if (bq == 128 && bk == 64 && stages == 2) return wgmma_d<2, 64, 2, 160>(a);
+  if (bq == 64 && bk == 64 && stages == 3) return wgmma_d<1, 64, 3, 64>(a);
+  if (bq == 64 && bk == 128 && stages == 3) return wgmma_d<1, 128, 3, 64>(a);
+  if (bq == 128 && bk == 128 && stages == 3) return wgmma_d<2, 128, 3, 64, 80, 128>(a);
   return ERR_NO_TILE;
 }
 

@@ -784,6 +784,9 @@ template <bool B_KMAJOR>
 int dispatch_decode(const Args& a, int bm, int bk, int bn, int stages) {
   if (bm == 16 && bk == 128 && bn == 64 && stages == 4) return launch_decode<128, 64, 4, B_KMAJOR>(a);
   if (bm == 16 && bk == 128 && bn == 64 && stages == 3) return launch_decode<128, 64, 3, B_KMAJOR>(a);
+  if (bm == 16 && bk == 128 && bn == 64 && stages == 2) return launch_decode<128, 64, 2, B_KMAJOR>(a);
+  if (bm == 16 && bk == 128 && bn == 64 && stages == 5) return launch_decode<128, 64, 5, B_KMAJOR>(a);
+  if (bm == 16 && bk == 128 && bn == 64 && stages == 6) return launch_decode<128, 64, 6, B_KMAJOR>(a);
   return ERR_NO_TILE;
 }
 
@@ -791,6 +794,8 @@ template <bool B_KMAJOR>
 int dispatch_wgmma(const Args& a, int bm, int bk, int bn, int stages) {
   if (bm == 128 && bk == 64 && bn == 64 && stages == 6) return launch_wgmma<64, 6, B_KMAJOR>(a);
   if (bm == 128 && bk == 64 && bn == 256 && stages == 4) return launch_wgmma<256, 4, B_KMAJOR>(a);
+  if (bm == 128 && bk == 64 && bn == 128 && stages == 4) return launch_wgmma<128, 4, B_KMAJOR>(a);
+  if (bm == 128 && bk == 64 && bn == 128 && stages == 6) return launch_wgmma<128, 6, B_KMAJOR>(a);
   return ERR_NO_TILE;
 }
 

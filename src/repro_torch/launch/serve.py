@@ -17,6 +17,13 @@ extra inputs (the vlm family's image embeddings, the audio family's frame
 embeddings) gets random ones drawn from seed 0, one row a prompt, like its
 weights (the reference's launcher gives zeros), and cannot be served
 through ``--server``.
+
+It first prints the hardware profile the tuning registry is keyed by
+(``[hw] profile=... (flag|detected)``; ``--hardware`` names it, else
+``$REPRO_TORCH_HARDWARE`` or the device decides) and the tuning files it
+loaded (``[tuned] N configs from ...``; ``--tuned-dir`` reads another
+directory than the package's ``tuned/``).  ``--stats`` also prints where
+each decode GEMM's and prefill bucket's schedule came from.
 """
 from __future__ import annotations
 
@@ -26,6 +33,9 @@ import dataclasses
 import torch
 
 from repro_torch.configs.catalog import get_config
+from repro_torch.core import resolve_device, tuning_db
+from repro_torch.core.hardware import find_profile, resolve_hardware
+from repro_torch.core.registry import GLOBAL_REGISTRY
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, Request, ServeConfig, Server
 
@@ -82,10 +92,33 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
+    ap.add_argument("--hardware", default=None,
+                    help="hardware profile the tuned schedules are looked "
+                         "up for (default: $REPRO_TORCH_HARDWARE, else "
+                         "detected from the device)")
+    ap.add_argument("--tuned-dir", default=None,
+                    help="directory of tuning DBs to load (default: "
+                         "$REPRO_TORCH_TUNED_DIR, else the package's tuned/)")
     ap.add_argument("--stats", action="store_true",
                     help="print engine counters and kernel launch counts "
                          "(synchronizes after prefill to split timings)")
     args = ap.parse_args(argv)
+
+    hardware = resolve_hardware(args.hardware, resolve_device(args.device))
+    prof = find_profile(hardware)
+    print(f"[hw] profile={hardware} "
+          f"platform={prof.platform if prof else 'unknown'} "
+          f"({'flag' if args.hardware else 'detected'})")
+    # the files loaded here are the whole table: no lazy autoload of the
+    # package's tuned/ under (or before) them
+    GLOBAL_REGISTRY.clear()
+    GLOBAL_REGISTRY.mark_autoloaded()
+    loaded = tuning_db.load_all(GLOBAL_REGISTRY, args.tuned_dir)
+    for path, count in loaded.items():
+        print(f"[tuned] {count} configs from {path}")
+    if not loaded:
+        print("[tuned] no tuning DB found; using the profile's default "
+              "schedules")
 
     cfg = get_config(args.arch)
     if args.server and build_model(cfg).extra_inputs(1):
@@ -106,7 +139,8 @@ def main(argv=None) -> None:
         temperature=args.temperature, profile=args.stats,
         scheduler=args.scheduler, page_size=args.page_size,
         capacity_tokens=args.capacity_tokens, decode_chunk=args.decode_chunk,
-        prefix_cache=not args.no_prefix_cache, device=args.device))
+        prefix_cache=not args.no_prefix_cache, device=args.device,
+        hardware=hardware))
     gen = torch.Generator(device=eng.device).manual_seed(0)
     extra = {k: torch.randn(spec.shape, generator=gen,
                             device=eng.device).to(spec.dtype)
@@ -132,7 +166,8 @@ def main(argv=None) -> None:
               f"decode {toks / dec_s:.1f} tok/s")
         if st["scheduler"] == "continuous":
             pages = st["pages"] or {}
-            print(f"[stats] paged KV: page_size={st['page_size']}, "
+            print(f"[stats] paged KV: page_size={st['page_size']} "
+                  f"({st['page_size_source']}), "
                   f"capacity={st['capacity_tokens']} tokens, high water "
                   f"{pages.get('high_water_pages', 0)}/"
                   f"{pages.get('usable_pages', 0)} pages, "
@@ -150,6 +185,15 @@ def main(argv=None) -> None:
             print(f"[stats] server: {server['served']} served, "
                   f"{server['failed_drains']} failed drains")
         print(f"[stats] kernel launches: {st['kernel_launches']}")
+        print(f"[stats] hardware={st['hardware']} "
+              f"platform={st['hardware_platform']}, registry resolutions "
+              f"{st['registry_hit_stats']}")
+        for shape, res in (st["decode_tile_lookups"] or {}).items():
+            print(f"[tiles] decode gemm {shape}: {res['tile']} "
+                  f"({res['source']}, matched {res['matched_shape']})")
+        for shape, res in st["prefill_flash_lookups"].items():
+            print(f"[tiles] prefill flash {shape}: {res['tile']} "
+                  f"({res['source']}, matched {res['matched_shape']})")
 
 
 if __name__ == "__main__":

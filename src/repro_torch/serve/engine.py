@@ -55,6 +55,16 @@ with two schedulers sharing one model path.
   row's first real token, so each row decodes what it would decode alone.
   Prompt lengths are bucketed to powers of two (min 8; a wave's bucket is
   clamped so the bucket plus its decode budget fits ``max_len``).
+* **Tuning provenance** — the engine resolves its hardware profile once
+  (``ServeConfig.hardware``, else ``core.hardware.detect_hardware`` for its
+  device) and drains under it, so every kernel launch's schedule comes from
+  that profile's entries of the tuning registry.  It records where the
+  schedules came from, in the reference's format: each GEMM shape of the
+  first decode step (captured with ``capture_gemm_shapes``) and each
+  prefill bucket's flash problem, mapped to ``{source, tile,
+  matched_shape}``; and the page size's source (``config``, a tuned
+  ``paged_attn`` entry, or the registry's fallback of 16 tokens).  A CPU engine given
+  ``hardware="h100"`` reports what the card would resolve.
 * **Extra inputs and fixed leaves** — ``generate``/``run`` take
   ``extra_inputs`` (the vlm family's image embeddings, the audio family's
   frame embeddings), one row per request (``Request.row``), placed at each
@@ -77,7 +87,12 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.core.attention_api import flash_tile_lookup
 from repro_torch.core.device import resolve_device
+from repro_torch.core.gemm_api import capture_gemm_shapes, execution_context
+from repro_torch.core.hardware import find_profile, resolve_hardware
+from repro_torch.core.registry import GLOBAL_REGISTRY
+from repro_torch.core.tile_config import OP_GEMM, OP_PAGED_ATTN
 from repro_torch.kernels.paged import paged_copy, paged_gather, paged_scatter
 from repro_torch.models.model import Model
 from repro_torch.serve import api, kv_pages
@@ -86,9 +101,6 @@ from repro_torch.serve.reference import greedy
 from repro_torch.serve.stats_schema import SCHEMA_VERSION
 
 _PLEN_BUCKET_MIN = 8
-#: tokens per page when ServeConfig.page_size is None (the reference
-#: registry's default paged_attn entry)
-DEFAULT_PAGE_SIZE = 16
 #: per-request latency records kept for percentile stats
 _LATENCY_WINDOW = 4096
 #: smallest uniform draw for Gumbel noise (``jax.random.gumbel``'s minval)
@@ -127,7 +139,9 @@ class ServeConfig:
     # "continuous" (paged KV, admit/evict at chunk boundaries) or "wave".
     # int8-KV models run "wave" either way.
     scheduler: str = "continuous"
-    page_size: Optional[int] = None   # tokens per KV page; None -> 16
+    # tokens per KV page; None -> the tuning registry's paged_attn entry
+    # for (max_batch, max_len), else its fallback (16)
+    page_size: Optional[int] = None
     # Paged-pool capacity in TOKENS; None = max_batch * max_len.
     capacity_tokens: Optional[int] = None
     # Tokens decoded per chunk between scheduling boundaries.  Power of two.
@@ -135,6 +149,8 @@ class ServeConfig:
     # Share prefilled prompt KV across requests (continuous scheduler only).
     prefix_cache: bool = True
     device: Optional[str] = None      # None -> the card ("cuda")
+    # hardware profile the tuning registry is keyed by; None -> detected
+    hardware: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -228,8 +244,13 @@ class Engine:
         self.model = model
         self.params = params
         self.cfg = cfg
-        self.hardware = (torch.cuda.get_device_name(self.device)
-                         if self.device.type == "cuda" else "cpu")
+        # resolved once: every lookup (and the stats' provenance) of this
+        # engine is keyed by one profile
+        self.hardware = resolve_hardware(cfg.hardware, self.device)
+        prof = find_profile(self.hardware)
+        self._platform = prof.platform if prof else "unknown"
+        self._tile_lookups: Optional[Dict[str, Dict[str, object]]] = None
+        self._prefill_flash_lookups: Dict[str, Dict[str, object]] = {}
         self._chunk = chunk
         self._scheduler = cfg.scheduler
         self._scheduler_forced: Optional[str] = None
@@ -245,8 +266,7 @@ class Engine:
                 self._scheduler_forced = "int8-quantized KV cache"
         self._capacity_tokens = int(cfg.capacity_tokens
                                     or cfg.max_batch * cfg.max_len)
-        self._page_size = min(max(int(cfg.page_size or DEFAULT_PAGE_SIZE), 1),
-                              self._capacity_tokens)
+        self._page_size, self._page_size_source = self._resolve_page_size()
         self._sched = _SlotScheduler(cfg.max_batch)
         self._queue: List[_Request] = []
         self._next_rid = 0
@@ -272,6 +292,57 @@ class Engine:
             "prefill_seconds": 0.0, "decode_seconds": 0.0,
             "total_seconds": 0.0,
         }
+
+    # -- tuning provenance ----------------------------------------------------
+    def _resolve_page_size(self):
+        """(page size, source): the config's, else a tuned ``paged_attn``
+        entry for (max_batch, max_len) on the engine's profile, else the
+        registry's fallback; clamped to the pool's capacity."""
+        if self.cfg.page_size is not None:
+            page, source = max(int(self.cfg.page_size), 1), "config"
+        else:
+            res = GLOBAL_REGISTRY.lookup_op(
+                OP_PAGED_ATTN, self.hardware, self.model.cfg.dtype,
+                (self.cfg.max_batch, self.cfg.max_len))
+            page = max(int(res.config.page_size), 1)
+            source = (f"tuned:{res.source}"
+                      if res.source in ("exact", "nearest", "generic")
+                      else res.source)
+        return min(page, self._capacity_tokens), source
+
+    def _decode_step(self, tokens, cache, offset, kv_start):
+        """``model.decode_step``; the first one also records the registry's
+        resolution of each GEMM shape it runs (``decode_tile_lookups``)."""
+        if self._tile_lookups is not None:
+            return self.model.decode_step(self.params, tokens, cache, offset,
+                                          kv_start)
+        with capture_gemm_shapes() as shapes:
+            out = self.model.decode_step(self.params, tokens, cache, offset,
+                                         kv_start)
+        dtype = self.model.cfg.dtype
+        lookups = {}
+        for (m, k, n) in sorted(set(shapes)):
+            res = GLOBAL_REGISTRY.lookup_op(OP_GEMM, self.hardware, dtype,
+                                            (m, k, n))
+            lookups[f"{m}x{k}x{n}"] = {"source": res.source,
+                                       "tile": res.config.schedule,
+                                       "matched_shape": res.matched_shape}
+        self._tile_lookups = lookups
+        return out
+
+    def _record_prefill_flash_tiles(self, plen: int) -> None:
+        """Record the registry's resolution of this prefill bucket's flash
+        problem ``(plen, plen, head_dim)`` (flash-attention models only)."""
+        cfg = self.model.cfg
+        if cfg.attention_impl != "flash" or not cfg.num_heads:
+            return
+        key = f"{plen}x{plen}x{cfg.resolved_head_dim}"
+        if key not in self._prefill_flash_lookups:
+            res = flash_tile_lookup(self.hardware, cfg.dtype, plen, plen,
+                                    cfg.resolved_head_dim)
+            self._prefill_flash_lookups[key] = {
+                "source": res.source, "tile": res.config.schedule,
+                "matched_shape": res.matched_shape}
 
     # -- sampling -----------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -438,8 +509,9 @@ class Engine:
                 "extra_inputs needs every request submitted with row= "
                 "(its index into the extra arrays); generate() does this")
         self._gen.manual_seed(self.cfg.seed)
-        # no_grad is thread-local: entered here, it covers a Server's worker
-        with torch.no_grad():
+        # no_grad and the execution context are thread-local: entered here,
+        # they cover a Server's worker
+        with torch.no_grad(), execution_context(hardware=self.hardware):
             if self._scheduler == "continuous":
                 drained = self._run_continuous(extra_inputs)
             else:
@@ -595,6 +667,7 @@ class Engine:
         self._batch_extras(batch, wave, extra_inputs)
         cache = self._ensure_cache()
         self._plen_buckets.add(plen)
+        self._record_prefill_flash_tiles(plen)
         t0 = time.perf_counter()
         logits0, cache = self.model.prefill(self.params, batch, cache)
         self._sync_if_profiling()
@@ -615,8 +688,8 @@ class Engine:
                 done = done | (cur == eos)
             done = done | (lens >= budget)
             if step + 1 < need:
-                logits, cache = self.model.decode_step(
-                    self.params, cur[:, None], cache, offset, kv_start)
+                logits, cache = self._decode_step(cur[:, None], cache,
+                                                  offset, kv_start)
                 cur = self._sample(logits)
                 offset += 1
         # The ONE device-to-host transfer of this wave.
@@ -774,6 +847,7 @@ class Engine:
         self._batch_extras(batch, admitted, extra_inputs)
         scratch = self._scratch_cache(plen)
         self._plen_buckets.add(plen)
+        self._record_prefill_flash_tiles(plen)
         t0 = time.perf_counter()
         logits0, filled = self.model.prefill(self.params, batch, scratch)
         dest_t = torch.from_numpy(dest)
@@ -857,8 +931,8 @@ class Engine:
             # Always advance (see the module docstring): while any row is
             # live this is the reference's step; after, it is masked work.
             # The chunk's last advance is the next chunk's first token.
-            logits, cache = self.model.decode_step(self.params, cur[:, None],
-                                                   cache, offset, kv_start)
+            logits, cache = self._decode_step(cur[:, None], cache, offset,
+                                              kv_start)
             cur = self._sample(logits)
             offset += 1
         sidx_t = torch.from_numpy(sidx)
@@ -887,12 +961,18 @@ class Engine:
     # -- telemetry ----------------------------------------------------------------
     def stats(self) -> Dict[str, object]:
         """Counters, scheduler and paged-pool state, prefix-cache counters,
-        latency percentiles and the kernels' launch counts (process-wide, as
-        ``repro_torch.kernels`` keeps them).  The key set is versioned in
+        latency percentiles, the kernels' launch counts (process-wide, as
+        ``repro_torch.kernels`` keeps them) and the tuning provenance:
+        ``hardware`` / ``hardware_platform`` (the resolved profile),
+        ``decode_tile_lookups`` (None before the first decode step),
+        ``prefill_flash_lookups``, ``registry_hit_stats`` (the global
+        registry's resolutions by tier) and, on continuous engines,
+        ``page_size_source``.  The key set is versioned in
         :mod:`repro_torch.serve.stats_schema`."""
         out: Dict[str, object] = dict(self._stats)
         out["schema_version"] = SCHEMA_VERSION
         out["hardware"] = self.hardware
+        out["hardware_platform"] = self._platform
         out["device"] = str(self.device)
         out["prefill_plen_buckets"] = sorted(self._plen_buckets)
         out["scheduler"] = self._scheduler
@@ -901,6 +981,7 @@ class Engine:
             out["decode_chunk"] = self._chunk
             out["capacity_tokens"] = self._capacity_tokens
             out["page_size"] = self._page_size
+            out["page_size_source"] = self._page_size_source
             out["pages"] = None
             if self._alloc is not None:
                 out["pages"] = {
@@ -929,4 +1010,7 @@ class Engine:
         out["slots_evicted"] = self._sched.evicted
         out["slot_reuses"] = self._sched.reuses
         out["kernel_launches"] = kernels.launch_counts()
+        out["decode_tile_lookups"] = self._tile_lookups
+        out["prefill_flash_lookups"] = dict(self._prefill_flash_lookups)
+        out["registry_hit_stats"] = dict(GLOBAL_REGISTRY.hit_stats)
         return out

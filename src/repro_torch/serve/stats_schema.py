@@ -9,8 +9,9 @@ documents exactly the keys the port's ``Engine.stats()`` emits:
   present (``always`` vs ``continuous``-scheduler engines), and a one-line
   description.
 * ``NOT_PORTED_KEYS`` — the reference's keys the port has no counterpart
-  for yet (hardware platform, mesh and sharding, tuning provenance); they
-  come with the tuning registry and the distribution layer.
+  for: ``decode_unroll`` and ``decode_unroll_source`` (the port's decode
+  has no fused device loop to unroll: a chunk is a Python loop of steps),
+  and ``mesh`` and ``sharding`` (they come with the distribution layer).
 * ``PORT_KEYS`` — the port's own keys: the torch device the engine runs on
   and the kernels' launch counts by wrapper.
 * ``PAGES_KEYS`` / ``PREFIX_CACHE_KEYS`` / ``LATENCY_KEYS`` — the nested
@@ -24,8 +25,9 @@ import dataclasses
 from typing import Dict, List
 
 #: bump on any key add/remove/rename (v1 = the port's first versioned set;
-#: the JAX package numbers its own schema apart)
-SCHEMA_VERSION = 1
+#: v2 adds the tuning provenance; the JAX package numbers its own schema
+#: apart)
+SCHEMA_VERSION = 2
 
 #: presence conditions
 ALWAYS = "always"
@@ -95,7 +97,10 @@ STATS_SCHEMA: Dict[str, StatKey] = {
     "capacity_tokens": StatKey("paged", CONTINUOUS,
                                "paged-pool capacity in tokens"),
     "page_size": StatKey("paged", CONTINUOUS,
-                         "page size in tokens (config, else 16)"),
+                         "resolved page size in tokens"),
+    "page_size_source": StatKey("paged", CONTINUOUS,
+                                "page-size provenance (config/tuned:*/"
+                                "default/fallback)"),
     "pages": StatKey("paged", CONTINUOUS,
                      "allocator gauge dict (PAGES_KEYS sub-schema; None "
                      "before the pool is built)"),
@@ -111,8 +116,11 @@ STATS_SCHEMA: Dict[str, StatKey] = {
                             "sub-schema; enabled=False zeros when off)"),
     # -- hardware --------------------------------------------------------
     "hardware": StatKey("hardware", ALWAYS,
-                        "the card's name (torch.cuda.get_device_name), "
-                        "'cpu' on the CPU"),
+                        "resolved hardware profile name (core.hardware: "
+                        "'h100', 'cpu', ...)"),
+    "hardware_platform": StatKey("hardware", ALWAYS,
+                                 "profile's platform (gpu/cpu; 'unknown' "
+                                 "for an unregistered name)"),
     "device": StatKey("hardware", ALWAYS, "torch device the engine runs on"),
     # -- tuning provenance ----------------------------------------------
     "prefill_plen_buckets": StatKey("tuning", ALWAYS,
@@ -120,16 +128,21 @@ STATS_SCHEMA: Dict[str, StatKey] = {
     "kernel_launches": StatKey("tuning", ALWAYS,
                                "launches per kernel wrapper (gemm, "
                                "flash_attention), process-wide"),
+    "decode_tile_lookups": StatKey("tuning", ALWAYS,
+                                   "decode GEMM shape -> resolved schedule "
+                                   "+ tier (None before the first step)"),
+    "prefill_flash_lookups": StatKey("tuning", ALWAYS,
+                                     "flash prefill bucket -> resolved "
+                                     "schedule + tier"),
+    "registry_hit_stats": StatKey("tuning", ALWAYS,
+                                  "global registry resolutions per tier "
+                                  "(cached repeats not counted)"),
 }
 
-#: the JAX package's keys with no counterpart in the port yet: the
-#: hardware platform, mesh and sharding (ROADMAP queue 1, item 9) and the
-#: tuning provenance (item 7)
-NOT_PORTED_KEYS = (
-    "hardware_platform", "mesh", "sharding", "decode_unroll",
-    "decode_unroll_source", "decode_tile_lookups", "prefill_flash_lookups",
-    "registry_hit_stats", "page_size_source",
-)
+#: the JAX package's keys with no counterpart in the port: the fused
+#: decode loop's unroll (the port has no such loop) and the mesh and
+#: sharding (the distribution layer, ROADMAP queue 1)
+NOT_PORTED_KEYS = ("mesh", "sharding", "decode_unroll", "decode_unroll_source")
 
 #: the port's own keys (not in the JAX schema)
 PORT_KEYS = ("device", "kernel_launches")

@@ -669,3 +669,130 @@ def test_cuda_vlm_engine_bf16_goes_through_decode_and_wgmma(cuda):
     assert paths["decode"] > 0 and paths["wgmma"] > 0, paths
     assert paths["wmma"] == 0 and paths["fma"] == 0, paths
     assert flash["wgmma"] > 0 and flash["fma"] == 0, flash
+
+
+# ---------------------------------------------------------------------------
+# the tuning framework on the card
+# ---------------------------------------------------------------------------
+
+def _committed_table():
+    from pathlib import Path
+
+    from repro_torch.core import registry, tuning_db
+    path = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+            / "tuned" / "h100.json")
+    reg = registry.TileRegistry()
+    tuning_db.load_into_registry(reg, str(path), strict=True)
+    return tuning_db.TuningDB.from_file(str(path)), reg
+
+
+def test_cuda_measured_sweep_records_exact_and_the_next_launch_takes_it(cuda):
+    """A measured sweep of one decode shape records an exact entry, and
+    ``core.matmul`` then launches the winner (its kernel's count moves and
+    its bits equal a direct launch of the winner)."""
+    from repro_torch.core import execution_context, matmul, registry, tuner
+    from repro_torch.core import gemm_api
+    from repro_torch.kernels.gemm import gemm_cuda
+    reg = registry.TileRegistry()
+    res = tuner.sweep_gemm(8, 2048, 512, mode="measure", search="exhaustive",
+                           repeats=2, registry=reg)
+    assert all(p.source == "measure" and p.seconds > 0 for p in res.points)
+    look = reg.lookup_op("gemm", "h100", torch.bfloat16, (8, 2048, 512))
+    assert (look.source, look.config) == ("exact", res.best.config)
+    a, b = _operands(cuda, 5, 8, 2048, 512)
+    old = gemm_api.GLOBAL_REGISTRY
+    gemm_api.GLOBAL_REGISTRY = reg
+    try:
+        before = gemm_cuda.launches_by_path[res.best.config.kernel]
+        with execution_context(hardware="h100"):
+            got = matmul(a, b)
+        assert gemm_cuda.launches_by_path[res.best.config.kernel] == before + 1
+    finally:
+        gemm_api.GLOBAL_REGISTRY = old
+    want = gemm_cuda(a, b, config=res.best.config)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k,n,kmajor", [
+    (2048, 2048, False), (2048, 512, False), (2048, 8192, False),
+    (8192, 2048, False), (2048, 128256, True)])
+def test_cuda_committed_table_keeps_decode_rows_batch_invariant(cuda, k, n,
+                                                                 kmajor):
+    """Under the committed h100 table, every llama decode shape resolves
+    exact and a row computed in a batch of 8 equals it computed alone."""
+    from repro_torch.kernels.gemm import gemm_cuda
+    _, reg = _committed_table()
+    a, b = _operands(cuda, k + n + 1, 8, k, n, kmajor=kmajor)
+    looks = {m: reg.lookup_op("gemm", "h100", torch.bfloat16, (m, k, n))
+             for m in (1, 8)}
+    assert looks[1].source == looks[8].source == "exact"
+    assert looks[1].config == looks[8].config
+    run = lambda x: gemm_cuda(x, b, config=looks[x.shape[0]].config)
+    batch = run(a)
+    for i in range(8):
+        assert torch.equal(run(a[i:i + 1])[0], batch[i]), i
+
+
+def test_cuda_every_committed_entry_matches_plain_version(cuda):
+    """Each entry of the committed table, at its own shape, on the kernel
+    it names, against the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.gemm import gemm_cuda
+    db, _ = _committed_table()
+    for rec in db.records():
+        cfg = rec.config
+        if rec.op == "gemm":
+            m, k, n = rec.shape
+            a, b = _operands(cuda, m + k + n, m, k, n, kmajor=n % 8 != 0)
+            before = gemm_cuda.launches_by_path[cfg.kernel]
+            got = gemm_cuda(a, b, config=cfg, activation="silu")
+            assert gemm_cuda.launches_by_path[cfg.kernel] == before + 1
+            want = ref.gemm_ref(a, b, activation="silu")
+        else:
+            sq, skv, d = rec.shape
+            q, k, v = _flash_operands(cuda, sq + d, 2, sq, skv, 8, 2, d, skv)
+            before = flash_attention_cuda.launches_by_path[cfg.kernel]
+            got = flash_attention_cuda(q, k, v, config=cfg)
+            assert flash_attention_cuda.launches_by_path[cfg.kernel] == \
+                before + 1
+            want = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        assert torch.allclose(got.float(), want.float(), **BF16), rec
+
+
+@pytest.mark.parametrize("hw_name", ["cpu", "a100-typo"])
+def test_cuda_fallback_profile_runs_the_hand_tables(cuda, hw_name):
+    """CUDA tensors served under a profile with no default tier (or an
+    unknown name) take the hand tables from the fallback tier: bf16 on the
+    decode and wgmma kernels, f32 on fma (never a refused schedule), bf16
+    flash on wgmma; each against its plain version."""
+    import warnings
+
+    from repro_torch.core import execution_context, flash_attention, matmul
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.gemm import gemm_cuda
+    cases = [(8, 2048, 512, torch.bfloat16, "decode"),
+             (256, 2048, 512, torch.bfloat16, "wgmma"),
+             (8, 256, 192, torch.float32, "fma")]
+    with warnings.catch_warnings(), execution_context(hardware=hw_name):
+        warnings.simplefilter("ignore")
+        for m, k, n, dtype, path in cases:
+            a, b = _operands(cuda, m + n, m, k, n, dtype=dtype)
+            before = dict(gemm_cuda.launches_by_path)
+            got = matmul(a, b)
+            after = gemm_cuda.launches_by_path
+            assert after[path] == before[path] + 1, (m, dtype)
+            assert sum(after.values()) == sum(before.values()) + 1
+            torch.cuda.synchronize()
+            tol = BF16 if dtype == torch.bfloat16 else F32
+            assert torch.allclose(got.float(), ref.gemm_ref(a, b).float(),
+                                  **tol)
+        q, kk, v = _flash_operands(cuda, 3, 2, 256, 256, 8, 2, 64, 256)
+        before = dict(flash_attention_cuda.launches_by_path)
+        got = flash_attention(q, kk, v)
+        assert flash_attention_cuda.launches_by_path["wgmma"] == \
+            before["wgmma"] + 1
+    torch.cuda.synchronize()
+    assert torch.allclose(got.float(),
+                          ref.flash_attention_ref(q, kk, v).float(), **BF16)
