@@ -118,13 +118,37 @@ Phases, each printing one JSON line:
    and the shared block) whose continuous and wave tokens must equal the
    per-prompt oracle's.
 
+13. ``train`` — every serving weight freed first; full-width llama3.2-1b
+   in bf16 (seeded weights, chunked attention as the reference trains,
+   remat) on the synthetic pipeline, batch 8 x 512, warmup_cosine(1e-3,
+   10, 6): 6 steps through ``Trainer`` with a checkpoint at step 3
+   (``build/train_checkpoint/``, removed after), then steps 4-6 again
+   from the checkpoint in a fresh state, whose losses and parameters must
+   equal the first run's bit for bit (``torch.use_deterministic_
+   algorithms`` on: index_select's backward adds with atomics).  Launch
+   counts from 0 over the 6 steps: every bf16 product, forward, remat
+   recompute, dX and dW, on wgmma (28 a layer + 1 a step), fma exactly at
+   the unembed's two f32-cotangent products a step, no decode, wmma or
+   flash launch.  Finite losses; step walls, tokens/s, peak memory;
+   one bf16 step against the plain versions (``gemm_ref`` under
+   PyTorch's autograd: loss and grad norm within ``TRAIN_BF16_TOL``); one
+   f32 step at full width and 2 layers against them (loss, metrics, every
+   gradient leaf, every parameter after the step within
+   ``TRAIN_F32_TOL``); one timed step (CUDA events): K1's device time by
+   role (forward, remat recompute, dX, dW, the unembed's two f32 backward
+   products; the f32 casts and x.T copies beside them), the step's GEMM
+   shapes and each one's registry provenance.
+
 The kernels phase also holds whisper's shapes (d 1280 projections with
 biases and the GELU MLP at M = 8, 8 x 256 and the encoder's 8 x 1500, the
 unembed at N = 51866), mamba2-130m's (in_proj 768 x 3352, out_proj, the
 tied unembed at N = 50280) and zamba2-2.7b's (in_proj 2560 x 10448,
 out_proj, the shared block's projections and MLP, the unembed at N =
 32000), and K2 at (8, 256, 20, 20, 64), stablelm-12b's (8, 256, 32, 8,
-160) and zamba2-2.7b's head dim 80, (8, 256, 32, 32, 80).
+160) and zamba2-2.7b's head dim 80, (8, 256, 32, 32, 80); and the train
+phase's products at M = 4096: each projection's forward (the gate's
+without SiLU, f32 out), dX (B K-major) and dW (K = 4096), the tied
+unembed's forward and its two f32 backward products (fma).
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -138,6 +162,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -315,6 +340,27 @@ def gemm_cases(torch):
                           bf, False, True))
     cases.append(("zamba unembed (f32 out)", 8, dz, 32000, bf, False, None,
                   f32, False, True))
+    # llama3.2-1b training (train phase): batch 8 x 512 = 4096 rows.  The
+    # forward (the gate runs without its SiLU, f32 out: the autograd
+    # Function keeps the pre-activation), then dX = dZ @ W.T (B K-major)
+    # and dW = X.T @ dZ (K = 4096) of each projection; the unembed's
+    # backward products take its f32 cotangent on f32 operands (fma).
+    mt = 8 * 512
+    for name, k, n, out in (("q/o", d, d, bf), ("k/v", d, kvd, bf),
+                            ("gate (f32 pre-activation)", d, ff, f32),
+                            ("up", d, ff, bf), ("down", ff, d, bf)):
+        cases.append((f"train fwd {name}", mt, k, n, bf, False, None, out,
+                      False, True))
+        cases.append((f"train dX {name}", mt, n, k, bf, True, None, bf,
+                      False, True))
+        cases.append((f"train dW {name}", k, mt, n, bf, False, None, bf,
+                      False, True))
+    cases.append(("train fwd unembed (tied, B=emb.T, f32 out)", mt, d, vocab,
+                  bf, True, None, f32, False, True))
+    cases.append(("train unembed dX (f32 cotangent)", mt, vocab, d, f32,
+                  False, None, bf, False, True))
+    cases.append(("train unembed dW (f32 cotangent)", d, mt, vocab, f32,
+                  False, None, bf, False, True))
     for (name, k, n) in (("k/v", d, kvd), ("down", ff, d)):
         for m in (1, 3, 8, 16):
             cases.append((f"decode edge {name} M={m} silu", m, k, n, bf,
@@ -392,9 +438,11 @@ def run_gemm_case(torch, timers, case, gen):
         nbytes += n * 4 + (m * n * 4 if c is not None else 0)
     b_ms, b_by = bound(2.0 * m * n * k, nbytes, str(dtype).split(".")[1])
     timer, device_timer = timers
+    reps = dict(reps=3, warmup=1) if 2.0 * m * n * k > 1e12 else {}
     kernel = lambda: gemm_cuda(a, b, c, config=tile, **kw)
     library = lambda: torch.matmul(a, b)
-    kernel_ms, kernel_device_ms = timer(kernel), device_timer(kernel)
+    kernel_ms = timer(kernel, **reps)
+    kernel_device_ms = device_timer(kernel, **reps)
     return {
         "name": "gemm", "replaces": KERNELS[0][3], "case": label,
         "shape": [m, k, n], "dtype": str(dtype).split(".")[1],
@@ -402,9 +450,9 @@ def run_gemm_case(torch, timers, case, gen):
         "source": res.source, "max_abs_err": err, "tol": f"atol=rtol={tol}",
         "same_bits_twice": same_bits, "ok": bool(ok) and same_bits,
         "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
-        "plain_ms": timer(lambda: gemm_ref(a, b, c, **kw)),
-        "library_ms": timer(library),
-        "library_device_ms": device_timer(library),
+        "plain_ms": timer(lambda: gemm_ref(a, b, c, **kw), **reps),
+        "library_ms": timer(library, **reps),
+        "library_device_ms": device_timer(library, **reps),
         "library": "torch.matmul",
         "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / kernel_ms,
         "share_of_bound_device": b_ms / kernel_device_ms,
@@ -414,7 +462,8 @@ def run_gemm_case(torch, timers, case, gen):
 
 def model_of(label: str) -> str:
     """The model whose serve path gives a kernels-phase case its shape."""
-    for prefix, model in (("olmoe", "olmoe-1b-7b"),
+    for prefix, model in (("train", "llama3.2-1b (train)"),
+                          ("olmoe", "olmoe-1b-7b"),
                           ("vlm", "llama-3.2-vision-11b"),
                           ("whisper", "whisper-large-v3"),
                           ("stablelm", "stablelm-12b"),
@@ -592,6 +641,7 @@ def phase_kernels(torch, out_dir):
     if bad:
         raise AssertionError(f"decode rows differ between M = 8 and 1: {bad}")
     slow = [r["case"] for r in rows if r["main_path"] and r["path"] not in (
+        ("fma",) if r["dtype"] == "float32" else
         ("decode", "wgmma") if r["name"] == "gemm" else ("wgmma",))]
     if slow:
         raise AssertionError(f"main-path shapes off the new kernels: {slow}")
@@ -1615,6 +1665,374 @@ def phase_serve_hybrid(torch, ctx):
 
 
 # ---------------------------------------------------------------------------
+# phase: train
+# ---------------------------------------------------------------------------
+
+#: the train phase's run: batch, tokens a row, steps, checkpoint at
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 512, 6, 3
+#: the bf16 step against the plain versions: relative tolerance of the
+#: loss (a mean over 4096 tokens of bf16 activations, ~2**-9 a rounding)
+#: and of the gradient norm (the kernel path also rounds each product's
+#: cotangent dZ to bf16, as its bf16 operand)
+TRAIN_BF16_TOL = {"loss": 5e-3, "grad_norm": 3e-2}
+#: the f32 step (2 layers): loss and metrics rtol; every gradient leaf's max
+#: abs error over its max abs value (summation order over K up to 128256);
+#: the parameters after the step, atol = rtol, where the plain gradient is
+#: at least ``grad_floor`` of its leaf's max.  AdamW's first update is
+#: lr * g / (|g| + eps) an element, so where |g| is as small as the
+#: gradients' own difference it can land anywhere within lr of the plain
+#: one: there (and everywhere) the parameters are held within 2 lr.
+TRAIN_F32_TOL = {"metrics": 1e-5, "grad": 1e-4, "param": 1e-5,
+                 "grad_floor": 1e-3}
+
+
+def plain_matmul(torch):
+    """A context in which ``core.matmul`` is the plain version: its product
+    is ``gemm_ref`` (cuBLAS in f32 on the card) under PyTorch's own
+    autograd, not the autograd Function over the kernel."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.core import gemm_api
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gemm_ref
+
+    def gemm(a, b, c=None, *, config=None, **kw):
+        return gemm_ref(a, b, c, **kw)
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(ops, "gemm", gemm))
+    stack.enter_context(mock.patch.object(gemm_api, "_grad_needed",
+                                          lambda *t: False))
+    return stack
+
+
+def grads_of(torch, model, params, batch):
+    """(loss, metrics, {path: gradient}) of ``lm_loss``."""
+    from repro_torch.models.params import map_tree, tree_paths
+    from repro_torch.train import lm_loss
+    live = map_tree(lambda _p, t: t.detach().requires_grad_(), params)
+    loss, metrics = lm_loss(model, live, batch)
+    paths = tree_paths(live)
+    grads = torch.autograd.grad(loss, list(paths.values()))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            dict(zip(paths, grads)))
+
+
+def k1_split(torch, run):
+    """K1's device time (ms) and launches in ``run()`` by role, timed with
+    CUDA events around each launch and each of the autograd Function's
+    ranges (``gemm_api.record_function``, patched here): ``forward``,
+    ``forward_recompute`` (run inside the backward: remat), ``dX``,
+    ``dW``, and the unembed's f32 backward products apart
+    (``unembed_dX``, ``unembed_dW``); ``dX_casts`` and ``dW_copies`` are
+    the rest of the dX and dW ranges' device time (the f32 casts of the
+    unembed's operands, the x.T copies)."""
+    import contextlib
+    import threading
+    from unittest import mock
+
+    from repro_torch.core import gemm_api
+    from repro_torch.kernels import ops
+
+    tls = threading.local()
+    marks = []
+    real_gemm = ops.gemm
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    @contextlib.contextmanager
+    def role(name):
+        tls.role = name.split(".", 1)[1]
+        start = event()
+        try:
+            yield
+        finally:
+            marks.append((f"range {tls.role}", start, event()))
+            tls.role = None
+
+    def gemm(a, b, *args, **kw):
+        start = event()
+        out = real_gemm(a, b, *args, **kw)
+        r = getattr(tls, "role", None)
+        if r in ("dX", "dW") and a.dtype == torch.float32:
+            key = f"unembed_{r}"
+        elif r == "forward" and torch._C._current_graph_task_id() != -1:
+            key = "forward_recompute"      # run by the backward (remat)
+        else:
+            key = r
+        marks.append((key, start, event()))
+        return out
+
+    with mock.patch.object(gemm_api, "record_function", role), \
+            mock.patch.object(ops, "gemm", gemm):
+        run()
+    torch.cuda.synchronize()
+    ms, counts = {}, {}
+    for key, start, end in marks:
+        ms[key] = ms.get(key, 0.0) + start.elapsed_time(end)
+        counts[key] = counts.get(key, 0) + 1
+    split = {k: ms.get(k, 0.0) for k in (
+        "forward", "forward_recompute", "dX", "dW", "unembed_dX",
+        "unembed_dW")}
+    split["dX_casts"] = ms.get("range dX", 0.0) - split["dX"] - \
+        split["unembed_dX"]
+    split["dW_copies"] = ms.get("range dW", 0.0) - split["dW"] - \
+        split["unembed_dW"]
+    return split, {k: v for k, v in counts.items() if not k.startswith("range")}
+
+
+def phase_train(torch, ctx):
+    """Full-width llama3.2-1b in bf16 (seeded weights, the chunked
+    attention path as the reference trains, remat) on the synthetic
+    pipeline, batch 8 x 512: 6 steps through ``Trainer`` with a
+    checkpoint at step 3, then steps 4-6 again from the checkpoint in a
+    fresh state: equal losses and parameters, bit for bit.  K1's launches
+    by path over the 6 steps (every bf16 product on wgmma; fma only at the
+    unembed's two f32-cotangent products a step; K2 none).  Then one bf16
+    step against the plain versions, one f32 step at 2 layers against them
+    (loss, every gradient leaf, every parameter after the step), and one
+    timed step: K1's device time by role (``k1_split``), the GEMM shapes
+    the step issues and their registry provenance."""
+    import contextlib
+    import dataclasses
+    import shutil
+    import warnings
+    from unittest import mock
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.core import GLOBAL_REGISTRY, capture_gemm_shapes
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_paths
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import (Trainer, TrainerConfig,
+                                   abstract_train_state, init_train_state,
+                                   make_train_step)
+
+    t_phase = time.perf_counter()
+    ctx.clear()
+    free_card(torch)
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="bfloat16",
+                              attention_impl="chunked", remat=True)
+    model = build_model(cfg)
+    opt = AdamW(learning_rate=warmup_cosine(1e-3, 10, TRAIN_STEPS))
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_S, global_batch=TRAIN_B),
+                         device="cuda")
+    tokens = TRAIN_B * TRAIN_S
+    ckdir = os.path.join(HERE, "build", "train_checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    out = {"phase": "train", "main_run": "run",
+           "card": torch.cuda.get_device_name(0),
+           "model": cfg.name, "dtype": cfg.dtype, "params":
+           model.param_count(), "batch": [TRAIN_B, TRAIN_S],
+           "attention_impl": cfg.attention_impl, "remat": cfg.remat_policy,
+           "schedule": f"warmup_cosine(1e-3, 10, {TRAIN_STEPS})",
+           "disk_free_gb": shutil.disk_usage(ckdir).free / 1e9}
+
+    def tcfg(total, every):
+        # step_deadline_s syncs each step, so step_walls holds its wall
+        return TrainerConfig(total_steps=total, log_every=1,
+                             checkpoint_every=every, step_deadline_s=1e9)
+
+    # index_select's backward (the embedding's gradient) adds with atomics
+    # on the card; a bit-equal resume needs its deterministic algorithm
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out["deterministic_algorithms"] = (
+        "on: index_select's backward (the embedding gradient) accumulates "
+        "with atomics on the card")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            # -- 6 steps, checkpoint at 3 (launch counts from 0) ----------
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = init_train_state(model, opt, 0, device="cuda")
+            torch.cuda.synchronize()
+            out["init_seconds"] = time.perf_counter() - t0
+            out["state_gb"] = sum(
+                t.numel() * t.element_size() for tree in
+                (state.params, state.opt.m, state.opt.v, state.opt.master)
+                for t in tree_paths(tree).values()) / 1e9
+            assert out["disk_free_gb"] > 1.1 * out["state_gb"], (
+                "no room for the step-3 checkpoint", out["disk_free_gb"],
+                out["state_gb"])
+            ck = Checkpointer(ckdir, keep=1)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            first = Trainer(model, opt, pipe, tcfg(TRAIN_SAVE_AT,
+                                                   TRAIN_SAVE_AT),
+                            checkpointer=ck)
+            state, hist_a = first.run(state)
+            run1 = time.perf_counter() - t0
+            second = Trainer(model, opt, pipe, tcfg(TRAIN_STEPS, 10 ** 9))
+            state, hist_b = second.run(state, start_step=TRAIN_SAVE_AT)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            gemm_paths = kernels.gemm_launches_by_path()
+            flash_paths = kernels.flash_launches_by_path()
+            walls = first.step_walls + second.step_walls
+            history = hist_a + hist_b
+            out["run"] = {"launches": launches,
+                          "gemm_launches_by_path": gemm_paths,
+                          "flash_launches_by_path": flash_paths}
+            out.update(
+                losses=[l for _, l in history], step_walls=walls,
+                checkpoint_save_seconds=run1 - sum(first.step_walls),
+                tok_per_s_warm=tokens * (TRAIN_STEPS - 1) / sum(walls[1:]),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            final = {p: t for p, t in tree_paths(state.params).items()}
+            del state, first, second
+            free_card(torch)
+            # -- resume from the checkpoint in a fresh state ---------------
+            t0 = time.perf_counter()
+            resumed = ck.restore(TRAIN_SAVE_AT,
+                                 abstract_train_state(model, opt),
+                                 device="cuda")
+            torch.cuda.synchronize()
+            out["checkpoint_restore_seconds"] = time.perf_counter() - t0
+            assert int(resumed.step) == TRAIN_SAVE_AT
+            resumed, hist_r = Trainer(model, opt, pipe, tcfg(
+                TRAIN_STEPS, 10 ** 9)).run(resumed, start_step=TRAIN_SAVE_AT)
+            out["resumed_losses"] = [l for _, l in hist_r]
+            out["resume_bit_equal"] = hist_r == hist_b and all(
+                torch.equal(t, final[p])
+                for p, t in tree_paths(resumed.params).items())
+            del resumed, final
+            free_card(torch)
+            shutil.rmtree(ckdir, ignore_errors=True)
+            # -- one bf16 step: K1 against the plain versions --------------
+            step = make_train_step(model, opt)
+            batch = pipe(0)
+            hold = {}
+            for name in ("kernel", "plain"):
+                state = init_train_state(model, opt, 0, device="cuda")
+                kernels.reset_launch_counts()
+                with (plain_matmul(torch) if name == "plain"
+                      else contextlib.nullcontext()):
+                    _, m = step(state, batch)
+                hold[name] = ({k: float(m[k]) for k in ("loss", "grad_norm")},
+                              kernels.launch_counts()["gemm"])
+                del state, m
+                free_card(torch)
+            out["bf16_step_vs_plain"] = {
+                "kernel": hold["kernel"][0], "plain": hold["plain"][0],
+                "plain_gemm_launches": hold["plain"][1],
+                "tol_rel": TRAIN_BF16_TOL}
+            # -- one timed step: K1 by role, shapes, provenance ------------
+            state = init_train_state(model, opt, 0, device="cuda")
+            step(state, pipe(1))                         # warm
+            lookups = {}
+            real_lookup = GLOBAL_REGISTRY.lookup_op
+
+            def lookup(op, hw, dtype, shape):
+                res = real_lookup(op, hw, dtype, shape)
+                lookups[(op, str(dtype).split(".")[1], tuple(shape))] = (
+                    res.source, res.config.schedule)
+                return res
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mock.patch.object(GLOBAL_REGISTRY, "lookup_op", lookup), \
+                    capture_gemm_shapes(calls=True) as shapes:
+                split, counts = k1_split(torch, lambda: step(state, pipe(2)))
+            out["timed_step_wall"] = time.perf_counter() - t0
+            out["k1_device_ms_by_role"] = split
+            out["k1_launches_by_role"] = counts
+            out["step_gemm_shapes"] = sorted(
+                {f"{m}x{k}x{n}{' kmajor' if km else ''} "
+                 f"out {str(od).split('.')[1]}" for m, k, n, km, od in shapes})
+            out["step_gemm_provenance"] = {
+                f"{dt} {'x'.join(map(str, shp))}": {"source": src,
+                                                    "schedule": sched}
+                for (op, dt, shp), (src, sched) in sorted(lookups.items())
+                if op == "gemm"}
+            del state
+            free_card(torch)
+            # -- one f32 step at 2 layers against the plain versions -------
+            cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=2)
+            m32 = build_model(cfg32)
+            b32 = pipe(3)
+            res = {}
+            for name in ("kernel", "plain"):
+                st = init_train_state(m32, opt, 1, device="cuda")
+                with (plain_matmul(torch) if name == "plain"
+                      else contextlib.nullcontext()):
+                    kernels.reset_launch_counts()
+                    loss, metrics, grads = grads_of(torch, m32, st.params, b32)
+                    new, sm = make_train_step(m32, opt)(st, b32)
+                    res[name] = (loss, metrics, grads, new.params, sm,
+                                 kernels.gemm_launches_by_path())
+                del st
+            kern, plain = res["kernel"], res["plain"]
+            rel = lambda a, b: abs(float(a) - float(b)) / max(  # noqa: E731
+                abs(float(b)), 1e-30)
+            metric_err = max([rel(kern[0], plain[0])]
+                             + [rel(kern[1][k], plain[1][k]) for k in plain[1]]
+                             + [rel(kern[4][k], plain[4][k]) for k in plain[4]])
+            grad_err = {p: ((g - plain[2][p]).abs().max()
+                            / plain[2][p].abs().max().clamp(min=1e-30)).item()
+                        for p, g in kern[2].items()}
+            ptol = TRAIN_F32_TOL["param"]
+            lr1 = float(opt.lr(torch.ones((), dtype=torch.int32)))
+            param_ok, param_err = {}, {}
+            for p, t in tree_paths(kern[3]).items():
+                want, g = tree_paths(plain[3])[p], plain[2][p].abs()
+                big = g >= TRAIN_F32_TOL["grad_floor"] * g.max()
+                param_ok[p] = bool(
+                    torch.allclose(t[big], want[big], atol=ptol, rtol=ptol)
+                    and (t - want).abs().max() <= 2 * lr1)
+                param_err[p] = [(t - want)[big].abs().max().item(),
+                                (t - want).abs().max().item()]
+            out["f32_step_vs_plain"] = {
+                "layers": 2, "loss": [float(kern[0]), float(plain[0])],
+                "metrics_max_rel_err": metric_err,
+                "grad_max_rel_err": grad_err, "lr": lr1,
+                "param_max_abs_err_large_grad_and_all": param_err,
+                "kernel_gemm_launches_by_path": kern[5],
+                "plain_gemm_launches_by_path": plain[5],
+                "tol": TRAIN_F32_TOL}
+            del res, kern, plain
+            free_card(torch)
+        out["warnings"] = sorted({str(w.message)[:160] for w in caught})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    # the checks, after the line is out
+    per_step = 28 * cfg.num_layers + 1
+    assert all(math.isfinite(l) for l in out["losses"]), out["losses"]
+    assert len(out["losses"]) == TRAIN_STEPS, out["losses"]
+    assert out["resume_bit_equal"], (out["losses"], out["resumed_losses"])
+    assert launches["flash_attention"] == 0, flash_paths
+    assert gemm_paths["decode"] == 0 and gemm_paths["wmma"] == 0, gemm_paths
+    assert gemm_paths["wgmma"] == per_step * TRAIN_STEPS, (gemm_paths,
+                                                            per_step)
+    assert gemm_paths["fma"] == 2 * TRAIN_STEPS, gemm_paths
+    roles = out["k1_launches_by_role"]
+    assert roles.get("unembed_dX") == roles.get("unembed_dW") == 1, roles
+    assert sum(roles.values()) == per_step + 2, roles
+    assert out["bf16_step_vs_plain"]["plain_gemm_launches"] == 0
+    for k, tol in TRAIN_BF16_TOL.items():
+        got, want = hold["kernel"][0][k], hold["plain"][0][k]
+        assert math.isfinite(got) and abs(got - want) <= tol * abs(want), \
+            (k, got, want, tol)
+    f32 = out["f32_step_vs_plain"]
+    assert sum(f32["plain_gemm_launches_by_path"].values()) == 0, f32
+    assert f32["kernel_gemm_launches_by_path"]["fma"] > 0, f32
+    assert f32["metrics_max_rel_err"] <= TRAIN_F32_TOL["metrics"], f32
+    assert max(f32["grad_max_rel_err"].values()) <= TRAIN_F32_TOL["grad"], f32
+    assert all(param_ok.values()), f32
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def _sums(mine):
@@ -1639,7 +2057,8 @@ def summarize(rows, launches, paths, features, families):
     serve phase's launches by path.  ``launches`` sums the main-path runs of
     every model (the serve phase; the continuous run of serve_moe,
     serve_vlm, serve_stablelm, serve_audio and serve_hybrid; serve_ssm's
-    forced wave run; each with the counts set to 0 before it);
+    forced wave run; the train phase's 6 steps; each with the counts set
+    to 0 before it);
     ``launches_by_run`` splits it, and ``launches_by_pass`` has the
     launches by path of every serve_features run and every run of the
     family phases."""
@@ -1707,7 +2126,8 @@ def main(argv=None) -> int:
     features = phase_serve_features(torch, ctx)
     families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx),
                 phase_serve_stablelm(torch, ctx), phase_serve_audio(torch, ctx),
-                phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx)]
+                phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx),
+                phase_train(torch, ctx)]
     print(card, flush=True)
     emit({"kernels": summarize(rows, launches, paths, features, families)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -40,8 +40,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, H, d); k, v: (B, S_kv, KV, d) with KV dividing H.  ``causal``
     aligns queries to the end of the KV sequence when S != S_kv.
     ``kv_start`` (B,) int32 masks each row's columns before it (left-padded
-    ragged batches).  Returns (B, S, H, d) in ``q.dtype``.
+    ragged batches).  Returns (B, S, H, d) in ``q.dtype``.  Raises under
+    grad mode when q, k or v requires grad: the kernel has no backward (nor
+    has the reference's), and a forward autograd cannot see would leave
+    the projections before it without a gradient.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash kernel has no gradient, as in the reference; train "
+            "with attention_impl='chunked'")
     cfg = None
     if q.is_cuda:
         cfg = flash_tile_lookup(

@@ -23,11 +23,13 @@ import threading
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.hardware import detect_hardware, launch_hardware
 from repro_torch.core.registry import GLOBAL_REGISTRY
 from repro_torch.core.tile_config import OP_GEMM
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import apply_epilogue
 
 
 @dataclasses.dataclass
@@ -70,7 +72,8 @@ def current_hardware(device=None) -> str:
 
 @contextlib.contextmanager
 def capture_gemm_shapes(*, calls: bool = False):
-    """Collect every (m, k, n) issued under this scope; with ``calls``,
+    """Collect every (m, k, n) issued under this scope (a backward run
+    inside it adds its products); with ``calls``,
     every ``(m, k, n, b_kmajor, out_dtype)``: what a measured sweep needs
     to lay its operands out as the model does.  The list is filled when
     the scope closes."""
@@ -81,6 +84,94 @@ def capture_gemm_shapes(*, calls: bool = False):
             yield out
     finally:
         out.extend(records if calls else [r[:3] for r in records])
+
+
+def _grad_needed(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a product of ``tensors`` must carry a gradient: grad mode is
+    on and one of them requires one."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, *, hardware: Optional[str],
+             capture: Optional[list], bias: Optional[torch.Tensor] = None,
+             activation: Optional[str] = None,
+             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One 2-D product through ``ops.gemm``: recorded in ``capture``, its
+    schedule resolved for ``hardware`` (None: the device's) on the card."""
+    m, k = a.shape
+    n = b.shape[1]
+    if capture is not None:
+        capture.append((m, k, n, b.stride(1) != 1 and b.stride(0) == 1,
+                        out_dtype or torch.promote_types(a.dtype, b.dtype)))
+    config = None
+    if a.is_cuda:
+        config = GLOBAL_REGISTRY.lookup_op(
+            OP_GEMM, hardware or launch_hardware(a.get_device()),
+            a.dtype, (m, k, n)).config
+    return ops.gemm(a, b, config=config, bias=bias, activation=activation,
+                    out_dtype=out_dtype)
+
+
+class _Matmul(torch.autograd.Function):
+    """``matmul`` under autograd: every product, forward and backward,
+    through ``ops.gemm`` (the GEMM kernel on the card, ``gemm_ref`` on the
+    CPU).
+
+    With an activation the forward keeps the f32 pre-activation ``z = x @
+    w + bias`` and applies the plain epilogue to it, the reference's order
+    (f32 accumulate, bias, activation, cast); the backward takes the
+    activation's derivative at ``z``.  The backward products run in the
+    operands' dtype promoted with the output's: bf16 for a bf16 projection,
+    f32 for the unembed's f32 cotangent (both operands upcast for it).
+    dX = dZ @ w.T reads ``w`` K-major, no copy; dW = x.T @ dZ copies x.T,
+    since the kernel reads its left operand with unit stride over K.
+    Each product runs inside a profiler range, ``matmul.forward``,
+    ``matmul.dX`` or ``matmul.dW``, so a trace splits the GEMM's time by
+    role (the dW range also holds the x.T copy).
+    """
+
+    @staticmethod
+    def forward(fctx, x2, w, bias, activation, out_dtype, hardware, capture):
+        out_dtype = out_dtype or torch.promote_types(x2.dtype, w.dtype)
+        prod = functools.partial(_product, hardware=hardware, capture=capture)
+        z = None
+        with record_function("matmul.forward"):
+            if activation is None:
+                y = prod(x2, w, bias=bias, out_dtype=out_dtype)
+            else:
+                z = prod(x2, w, bias=bias, out_dtype=torch.float32)
+                y = apply_epilogue(z, activation=activation).to(out_dtype)
+        fctx.save_for_backward(x2, w, z)
+        fctx.meta = (activation, out_dtype, hardware, capture,
+                     None if bias is None else bias.dtype)
+        return y
+
+    @staticmethod
+    def backward(fctx, dy):
+        x2, w, z = fctx.saved_tensors
+        activation, out_dtype, hardware, capture, bias_dtype = fctx.meta
+        prod = functools.partial(_product, hardware=hardware, capture=capture)
+        dz = dy
+        if activation is not None:
+            with torch.enable_grad():
+                zz = z.detach().requires_grad_()
+                dz, = torch.autograd.grad(
+                    apply_epilogue(zz, activation=activation), zz,
+                    dy.float())
+        pdt = torch.promote_types(torch.promote_types(x2.dtype, w.dtype),
+                                  out_dtype)
+        dz_p = dz.to(pdt)
+        dx = dw = db = None
+        if fctx.needs_input_grad[0]:
+            with record_function("matmul.dX"):
+                dx = prod(dz_p, w.to(pdt).t(), out_dtype=x2.dtype)
+        if fctx.needs_input_grad[1]:
+            with record_function("matmul.dW"):
+                dw = prod(x2.to(pdt).t().contiguous(), dz_p, out_dtype=w.dtype)
+        if fctx.needs_input_grad[2]:
+            db = dz.float().sum(0).to(bias_dtype)
+        return dx, dw, db, None, None, None, None
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -94,6 +185,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     flattened into the GEMM's M.  ``bias`` (N,) is added in f32 before the
     ``activation`` (relu | gelu | silu | tanh); ``out_dtype`` defaults to the
     operands' promoted type.
+
+    Differentiable: when grad mode is on and ``x``, ``w`` or ``bias``
+    requires grad, the product runs as :class:`_Matmul`, whose backward
+    products go through the same kernel (and are recorded by
+    ``capture_gemm_shapes`` when the backward runs inside its scope).
     """
     ctx = _ctx()
     k = x.shape[-1]
@@ -101,19 +197,13 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"matmul mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
     n = w.shape[1]
     lead = tuple(x.shape[:-1])
-    m = math.prod(lead)
-    x2 = x.reshape(m, k)
-    if ctx.capture is not None:
-        ctx.capture.append((m, k, n, w.stride(1) != 1 and w.stride(0) == 1,
-                            out_dtype or torch.promote_types(x.dtype,
-                                                             w.dtype)))
-    config = None
-    if x.is_cuda:
-        config = GLOBAL_REGISTRY.lookup_op(
-            OP_GEMM, ctx.hardware or launch_hardware(x.get_device()),
-            x.dtype, (m, k, n)).config
-    out = ops.gemm(x2, w, config=config, bias=bias, activation=activation,
-                   out_dtype=out_dtype)
+    x2 = x.reshape(math.prod(lead), k)
+    if _grad_needed(x, w, bias):
+        out = _Matmul.apply(x2, w, bias, activation, out_dtype, ctx.hardware,
+                            ctx.capture)
+    else:
+        out = _product(x2, w, hardware=ctx.hardware, capture=ctx.capture,
+                       bias=bias, activation=activation, out_dtype=out_dtype)
     return out.reshape(*lead, n)
 
 

@@ -5,7 +5,9 @@ kernel its ``TileConfig`` names on PyTorch's current stream through the
 ``ctypes`` binding (a split-K ``decode`` launch sums its partials in a
 per-stream f32 workspace).  It takes CUDA tensors only: a build or launch failure raises, and
 nothing falls back to the plain version (``ref.gemm_ref``), which
-``ops.gemm`` runs for CPU tensors.
+``ops.gemm`` runs for CPU tensors.  Under grad mode it refuses operands
+that require grad: its output has no ``grad_fn``, and ``core.matmul``'s
+autograd Function is the way to a gradient.
 
 One decision is the wrapper's, taken from the strides before the launch:
 bf16 operands that the ``decode`` (cp.async) and ``wgmma`` (TMA) kernels
@@ -127,6 +129,11 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None
                          f"{tuple(b.shape)}")
     if not (a.is_cuda and b.is_cuda):
         raise ValueError("gemm_cuda takes CUDA tensors")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, c, bias)):
+        raise RuntimeError(
+            "gemm_cuda: an operand requires grad, and the kernel's output "
+            "carries none; differentiate through core.matmul")
     if a.dtype != b.dtype or a.dtype not in _SUPPORTED:
         raise TypeError(f"gemm_cuda: operands must share one of {_SUPPORTED}, "
                         f"got {a.dtype} and {b.dtype}")

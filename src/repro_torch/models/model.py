@@ -9,6 +9,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike
 from repro_torch.models import hybrid as H
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params, param_count
 
@@ -40,6 +41,22 @@ class Model:
     def forward(self, params, batch: Dict[str, torch.Tensor]):
         """-> (logits (B, S, V) f32, aux_loss)."""
         return self._mod().forward(self.cfg, params, batch)
+
+    def forward_hidden(self, params, batch: Dict[str, torch.Tensor]):
+        """-> (final hidden pre-norm (B, S, D), aux_loss), for the loss's
+        chunked unembed.  The transformer families only."""
+        if self.cfg.family in SSM_FAMILIES:
+            raise NotImplementedError(
+                f"forward_hidden of the {self.cfg.family} family is not "
+                "ported (training covers the dense and moe families)")
+        return T.forward_hidden(self.cfg, params, batch)
+
+    def unembed_weight(self, params) -> torch.Tensor:
+        """(d_model, vocab); the tied head is ``embedding.t()``, a view."""
+        return T.unembed_weight(self.cfg, params)
+
+    def final_norm(self, params, x: torch.Tensor) -> torch.Tensor:
+        return L.apply_norm(params["ln_f"], x, eps=self.cfg.norm_eps)
 
     def init_cache(self, batch: int, max_len: int, dtype=None,
                    device: DeviceLike = None):

@@ -53,6 +53,24 @@ def tree_leaves(tree):
     return out
 
 
+def tree_paths(tree) -> dict:
+    """``{path: leaf}`` of a tree, in ``map_tree``'s order."""
+    out = {}
+    map_tree(lambda p, leaf: out.__setitem__(p, leaf), tree)
+    return out
+
+
+def map_trees(fn, tree, *others):
+    """``fn(leaf, *others' leaves at the same path)`` over ``tree``, where
+    ``fn`` returns a tuple: one tree per element of it comes back.  The
+    trees are matched by path, not by order, so trees of one template whose
+    dicts were built in different key orders line up."""
+    cols = [tree_paths(o) for o in others]
+    res = {p: fn(x, *(c[p] for c in cols)) for p, x in tree_paths(tree).items()}
+    n = len(next(iter(res.values())))
+    return tuple(map_tree(lambda p, _x: res[p][j], tree) for j in range(n))
+
+
 def _leaf_seed(seed: int, path: str) -> int:
     digest = int.from_bytes(hashlib.sha256(path.encode()).digest()[:4], "big")
     return (int(seed) * 0x9E3779B1 + digest) % (2 ** 63)
@@ -115,3 +133,26 @@ def params_from_numpy(tree, device: DeviceLike = None, template=None):
         return t.to(dev)
 
     return map_tree(leaf, tree)
+
+
+def train_state_from_numpy(state, device: DeviceLike = None, template=None):
+    """A reference train state whose leaves are numpy arrays (``step``,
+    ``params``, ``opt`` with ``count`` / ``m`` / ``v`` / ``master``, and
+    ``compression`` with ``residual``, or None) as the port's
+    ``TrainState``, bit for bit, every tree through
+    :func:`params_from_numpy` (``template`` lays out the params' K-major
+    leaves)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.compression import CompressionState
+    from repro_torch.train.trainer import TrainState
+
+    conv = lambda tree: params_from_numpy(tree, device)  # noqa: E731
+    opt = state.opt
+    comp = state.compression
+    return TrainState(
+        step=conv(state.step),
+        params=params_from_numpy(state.params, device, template),
+        opt=AdamWState(conv(opt.count), conv(opt.m), conv(opt.v),
+                       conv(opt.master)),
+        compression=None if comp is None
+        else CompressionState(residual=conv(comp.residual)))

@@ -4,7 +4,9 @@ kernel and the flash kernel.
 
 Layer params are stacked on a leading "layer" dim, as in the reference; the
 stack runs as a Python loop over that dim where the reference uses
-``lax.scan``.  KV caches are ``{"self": (K, V)}`` with K, V of shape
+``lax.scan``.  A training forward (the dense and moe stacks under grad)
+takes the layers with one ``unbind`` per leaf and, with ``cfg.remat``,
+recomputes each block in the backward (``torch.utils.checkpoint``).  KV caches are ``{"self": (K, V)}`` with K, V of shape
 (L, B, S, KV, hd), updated in place; an int8 cache (``cfg.kv_quant``) holds
 ``{"q", "s"}`` dicts in place of K and V.
 
@@ -30,16 +32,18 @@ d_model at any vocab.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import matmul
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.models.params import ParamSpec, map_tree
+from repro_torch.models.params import ParamSpec, map_tree, tree_leaves
 
 
 def attn_dims(cfg: ModelConfig) -> L.AttnDims:
@@ -56,6 +60,39 @@ def _stack_template(t, n: int):
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copy)."""
     return map_tree(lambda _p, x: x[i], tree)
+
+
+def _requires_grad(tree) -> bool:
+    """Grad mode is on and a leaf of ``tree`` requires grad: a training
+    forward."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(tree))
+
+
+def _unbound_layers(tree):
+    """Every layer of a stacked tree, from one ``unbind`` per leaf.  Under
+    autograd ``_layer``'s ``x[i]`` would cost each layer a backward that
+    writes a zero tensor the size of the whole stack; ``unbind``'s backward
+    stacks the layers' gradients once."""
+    per_leaf = [x.unbind(0) for x in tree_leaves(tree)]
+    out = []
+    for i in range(len(per_leaf[0])):
+        it = iter([layers[i] for layers in per_leaf])
+        out.append(map_tree(lambda _p, _x: next(it), tree))
+    return out
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` recomputed in the backward (``cfg.remat``, policy "full"), as
+    the reference's ``jax.checkpoint`` of each block.  Only a training
+    forward saves activations, so only it is wrapped."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
+            "blocks only (policy 'full')")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def _dense_block_template(cfg: ModelConfig):
@@ -173,11 +210,18 @@ def _run_dense_stack(cfg, blocks, x, positions, caches=None,
     summed in layer order (0.0 when dense), else None (the serving steps
     discard it)."""
     aux = 0.0
-    for i in range(blocks["ln1"]["scale"].shape[0]):
+    n = blocks["ln1"]["scale"].shape[0]
+    if caches is None and _requires_grad(blocks):
+        layers = _unbound_layers(blocks)
+        block = _maybe_remat(cfg, _dense_block)
+    else:
+        layers = [_layer(blocks, i) for i in range(n)]
+        block = _dense_block
+    for i in range(n):
         cache = None if caches is None else tuple(_layer(c, i) for c in caches)
-        x, _, a = _dense_block(cfg, _layer(blocks, i), x, positions,
-                               kv_cache=cache, cache_offset=cache_offset,
-                               kv_start=kv_start, with_aux=with_aux)
+        x, _, a = block(cfg, layers[i], x, positions, kv_cache=cache,
+                        cache_offset=cache_offset, kv_start=kv_start,
+                        with_aux=with_aux)
         if with_aux:
             aux = aux + a
     return x, caches, (aux if with_aux else None)
@@ -340,14 +384,21 @@ def _ragged_positions(seq: int, kv_start: torch.Tensor):
     return pos.clamp(min=0)
 
 
-def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
-    """Scoring forward -> (logits f32 (B, S, V), aux_loss)."""
+def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """Training / scoring trunk -> (final hidden pre-norm (B, S, D),
+    aux_loss: the MoE layers' summed, 0.0 without them)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     pos = _positions(b, s, tokens.device)
     x = _add_pos_emb(cfg, params, _embed(cfg, params, tokens), pos)
     x, _, aux = _run_stack(cfg, params, x, pos,
                            _cross_cache(cfg, params, batch), with_aux=True)
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """Scoring forward -> (logits f32 (B, S, V), aux_loss)."""
+    x, aux = forward_hidden(cfg, params, batch)
     return _unembed(cfg, params, x), aux
 
 

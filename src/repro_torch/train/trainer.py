@@ -1,0 +1,199 @@
+"""The train step and the training loop.
+
+``make_train_step`` builds the step function: gradients by autograd
+(accumulated in f32 over microbatches), optional int8 gradient compression
+with error feedback, AdamW with f32 masters.  It is functional over
+``TrainState`` as the reference's is: the state passed in is left as it
+was.  ``Trainer`` drives it over the data pipeline with checkpoints, a
+straggler deadline, and one host transfer for the logged losses.
+
+The train step covers the dense and moe families; the others raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.device import DeviceLike
+from repro_torch.models.model import Model
+from repro_torch.models.params import map_tree, map_trees, tree_leaves
+from repro_torch.optim import compression as comp
+from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.train.loss import lm_loss
+
+#: families whose train step is held against the reference's
+TRAIN_FAMILIES = ("dense", "moe")
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor                        # int32 0-d
+    params: Any
+    opt: AdamWState
+    compression: Optional[comp.CompressionState]
+
+
+def init_train_state(model: Model, optimizer: AdamW, seed: int = 0,
+                     use_compression: bool = False,
+                     device: DeviceLike = None) -> TrainState:
+    params = model.init(seed, device=device)
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int32,
+                         device=tree_leaves(params)[0].device),
+        params=params, opt=optimizer.init(params),
+        compression=comp.init_state(params) if use_compression else None)
+
+
+def abstract_train_state(model: Model, optimizer: AdamW,
+                         use_compression: bool = False) -> TrainState:
+    """Shapes and dtypes of a train state (``meta`` tensors): the template
+    ``Checkpointer.restore`` fills."""
+    ap = map_tree(lambda _p, spec: torch.empty(
+        spec.shape, dtype=getattr(torch, spec.dtype or model.cfg.dtype),
+        device="meta"), model.template)
+    return TrainState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        params=ap, opt=optimizer.abstract_state(ap),
+        compression=comp.abstract_state(ap) if use_compression else None)
+
+
+def _value_and_grad(model: Model, params, batch):
+    """(loss, metrics, grads): the loss of ``params`` on ``batch`` and its
+    gradient, one leaf per parameter in the parameter's dtype."""
+    live = map_tree(lambda _p, p: p.detach().requires_grad_(), params)
+    loss, metrics = lm_loss(model, live, batch)
+    it = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            map_tree(lambda _p, _x: next(it), live))
+
+
+def make_train_step(model: Model, optimizer: AdamW, *,
+                    microbatches: int = 1,
+                    use_compression: bool = False) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``microbatches`` > 1 splits the batch along dim 0 and sums the
+    microbatches' gradients in f32 (each divided by their number); the
+    metrics are then the loss and the optimizer's, as the reference's."""
+    if model.cfg.family not in TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"training the {model.cfg.family} family is not ported "
+            f"(covered: {', '.join(TRAIN_FAMILIES)})")
+
+    def compute_grads(params, batch):
+        if microbatches == 1:
+            return _value_and_grad(model, params, batch)
+        b = batch["tokens"].shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} does not split into {microbatches} "
+                             "microbatches")
+        size = b // microbatches
+        acc = loss = None
+        for i in range(microbatches):
+            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            l, _, grads = _value_and_grad(model, params, mb)
+            if acc is None:
+                acc = map_tree(lambda _p, p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params)
+                loss = torch.zeros((), dtype=torch.float32, device=l.device)
+            acc, = map_trees(lambda a, g: (a + g.float() / microbatches,),
+                             acc, grads)
+            loss = loss + l / microbatches
+        return loss, {}, acc
+
+    def train_step(state: TrainState, batch) -> tuple:
+        loss, metrics, grads = compute_grads(state.params, batch)
+        new_comp = state.compression
+        if use_compression:
+            grads, new_comp = comp.compress_grads(grads, state.compression)
+        new_params, new_opt, opt_metrics = optimizer.update(
+            grads, state.opt, state.params)
+        return (TrainState(state.step + 1, new_params, new_opt, new_comp),
+                {"loss": loss, **metrics, **opt_metrics})
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(model: Model) -> Callable:
+    def prefill_step(params, batch, cache):
+        with torch.no_grad():
+            return model.prefill(params, batch, cache)
+    return prefill_step
+
+
+def make_decode_step(model: Model) -> Callable:
+    def decode_step(params, tokens, cache, offset):
+        with torch.no_grad():
+            return model.decode_step(params, tokens, cache, offset)
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Training loop
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    log_every: int = 10
+    checkpoint_every: int = 50
+    checkpoint_dir: Optional[str] = None
+    microbatches: int = 1
+    use_compression: bool = False
+    step_deadline_s: Optional[float] = None   # straggler watchdog
+
+
+class Trainer:
+    """Runs the train step over ``data_iter(step)`` (a ``TokenPipeline``)."""
+
+    def __init__(self, model: Model, optimizer: AdamW, data_iter,
+                 cfg: TrainerConfig, checkpointer=None):
+        self.model = model
+        self.optimizer = optimizer
+        self.data_iter = data_iter
+        self.cfg = cfg
+        self.checkpointer = checkpointer
+        self._step = make_train_step(model, optimizer,
+                                     microbatches=cfg.microbatches,
+                                     use_compression=cfg.use_compression)
+        #: each step's wall (s) of the last ``run``, under ``step_deadline_s``
+        self.step_walls = []
+
+    def run(self, state: TrainState, start_step: int = 0):
+        """Run to ``total_steps``; returns (state, history [(step, loss)]).
+        Data keyed by step makes a restart replay the same run exactly.
+
+        Logged losses stay on the device while the loop runs; one transfer
+        at the end reads them all, so logging never stalls the queue.  Only
+        ``step_deadline_s`` syncs each step (to measure its wall), and a
+        checkpoint reads the state back to the host."""
+        logged_steps, logged_losses = [], []
+        self.step_walls = []
+        for step_idx in range(start_step, self.cfg.total_steps):
+            batch = self.data_iter(step_idx)
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("train.step"):
+                state, metrics = self._step(state, batch)
+            if self.cfg.step_deadline_s is not None:
+                if metrics["loss"].is_cuda:
+                    torch.cuda.synchronize(metrics["loss"].device)
+                dt = time.perf_counter() - t0
+                self.step_walls.append(dt)
+                if dt > self.cfg.step_deadline_s:
+                    # surfaced for the launcher, which decides what to do
+                    metrics = dict(metrics, straggler_flag=dt)
+            if (step_idx + 1) % self.cfg.log_every == 0:
+                logged_steps.append(step_idx + 1)
+                logged_losses.append(metrics["loss"])
+            if (self.checkpointer is not None
+                    and (step_idx + 1) % self.cfg.checkpoint_every == 0):
+                self.checkpointer.save(step_idx + 1, state)
+        losses = (torch.stack(logged_losses).cpu().tolist()
+                  if logged_losses else [])
+        return state, list(zip(logged_steps, losses))

@@ -1,5 +1,6 @@
-"""On the card: each CUDA kernel against its plain PyTorch version, and the
-engine's kernels on the serving path.  Needs no JAX, so it runs on the GPU
+"""On the card: each CUDA kernel against its plain PyTorch version, the
+engine's kernels on the serving path, and K1 under autograd (the matmul
+Function at the training shapes, one train step against the CPU's).  Needs no JAX, so it runs on the GPU
 machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -796,3 +797,100 @@ def test_cuda_fallback_profile_runs_the_hand_tables(cuda, hw_name):
     torch.cuda.synchronize()
     assert torch.allclose(got.float(),
                           ref.flash_attention_ref(q, kk, v).float(), **BF16)
+
+
+# ---------------------------------------------------------------------------
+# training: K1 under autograd
+# ---------------------------------------------------------------------------
+
+def test_cuda_gemm_and_flash_refuse_operands_that_require_grad(cuda):
+    """Reached outside ``core.matmul``'s autograd Function, the kernels'
+    outputs would carry no gradient: under grad mode both wrappers raise."""
+    from repro_torch.core import flash_attention
+    from repro_torch.kernels.gemm import gemm_cuda
+    a, b = _operands(cuda, 0, 256, 2048, 512)
+    a.requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        gemm_cuda(a, b, config=gemm_tiles(torch.bfloat16, 256, 2048, 512))
+    with torch.no_grad():
+        gemm_cuda(a, b, config=gemm_tiles(torch.bfloat16, 256, 2048, 512))
+    q, kk, v = _flash_operands(cuda, 1, 2, 256, 256, 8, 2, 64, 256)
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash_attention(q, kk, v)
+
+
+@pytest.mark.parametrize("name,k,n,act,kmajor,out", [
+    ("q", 2048, 2048, None, False, torch.bfloat16),
+    ("k/v", 2048, 512, None, False, torch.bfloat16),
+    ("gate+silu", 2048, 8192, "silu", False, torch.bfloat16),
+    ("down", 8192, 2048, None, False, torch.bfloat16),
+    ("unembed tied f32 out", 2048, 128256, None, True, torch.float32)])
+def test_cuda_matmul_function_matches_plain_autograd_at_training_shapes(
+        cuda, name, k, n, act, kmajor, out):
+    """M = 8 x 512 = 4096: the forward and dX, dW on the GEMM kernel (bf16
+    products on wgmma; the f32 cotangent of the unembed on fma) against
+    autograd through ``gemm_ref`` on the same operands."""
+    from repro_torch import kernels
+    from repro_torch.core import matmul
+    m = 4096
+    a, b = _operands(cuda, 7, m, k, n, kmajor=kmajor)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    ct = torch.randn(m, n, generator=gen, device=cuda)
+    xa, wb = a.clone().requires_grad_(), b.detach().requires_grad_()
+    kernels.reset_launch_counts()
+    y = matmul(xa, wb, activation=act, out_dtype=out)
+    (y.float() * ct).sum().backward()
+    paths = kernels.gemm_launches_by_path()
+    xr, wr = a.clone().requires_grad_(), b.detach().requires_grad_()
+    yr = ref.gemm_ref(xr, wr, activation=act, out_dtype=out)
+    (yr.float() * ct).sum().backward()
+    torch.cuda.synchronize()
+    want = {"wgmma": 1, "fma": 2} if out == torch.float32 else {"wgmma": 3}
+    assert {p: c for p, c in paths.items() if c} == want, paths
+    for got, exp in ((y, yr), (xa.grad, xr.grad), (wb.grad, wr.grad)):
+        assert got.dtype == exp.dtype
+        scale = exp.float().abs().max().item()
+        err = (got.float() - exp.float()).abs().max().item()
+        assert err <= 2e-2 * max(scale, 1.0), (name, err, scale)
+
+
+def test_cuda_train_step_matches_the_cpu(cuda):
+    """One float32 train step of reduced llama3.2-1b on the card (every
+    product on the fma kernel) against the same step on the CPU."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), remat=True)
+    model = build_model(cfg)
+    opt = AdamW(learning_rate=1e-3)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(model, opt, 0, device="cpu")
+        state = state._replace(step=state.step.to(dev),
+                               params=_to(state.params, dev),
+                               opt=type(state.opt)(*(_to(x, dev)
+                                                     for x in state.opt)))
+        kernels.reset_launch_counts()
+        new, metrics = make_train_step(model, opt)(
+            state, TokenPipeline(data, device=dev)(0))
+        results[dev] = (new, metrics, kernels.gemm_launches_by_path())
+    paths = results["cuda"][2]
+    assert paths["fma"] > 0 and sum(paths.values()) == paths["fma"], paths
+    for k, v in results["cpu"][1].items():
+        assert abs(float(results["cuda"][1][k]) - float(v)) <= 1e-4 * max(
+            abs(float(v)), 1.0), k
+    for leaf_c, leaf_g in zip(_leaves(results["cpu"][0].params),
+                              _leaves(results["cuda"][0].params)):
+        torch.testing.assert_close(leaf_g.cpu(), leaf_c, atol=1e-4, rtol=1e-4)
+
+
+def _leaves(tree):
+    from repro_torch.models.params import tree_leaves
+    return tree_leaves(tree)
