@@ -129,7 +129,8 @@ Phases, each printing one JSON line:
    counts from 0 over the 6 steps: every bf16 product, forward, remat
    recompute, dX and dW, on wgmma (28 a layer + 1 a step), fma exactly at
    the unembed's two f32-cotangent products a step, no decode, wmma or
-   flash launch.  Finite losses; step walls, tokens/s, peak memory;
+   flash launch.  Finite losses and every gradient leaf finite in every
+   step; step walls, tokens/s, peak memory;
    one bf16 step against the plain versions (``gemm_ref`` under
    PyTorch's autograd: loss and grad norm within ``TRAIN_BF16_TOL``); one
    f32 step at full width and 2 layers against them (loss, metrics, every
@@ -138,6 +139,16 @@ Phases, each printing one JSON line:
    role (forward, remat recompute, dX, dW, the unembed's two f32 backward
    products; the f32 casts and x.T copies beside them), the step's GEMM
    shapes and each one's registry provenance.
+14-17. ``train_audio``, ``train_ssm``, ``train_hybrid``, ``train_vlm`` —
+   the same for the other families (``TRAIN_PHASES``), with seeded extra
+   inputs beside the tokens: whisper-large-v3 at full width and depth
+   (8 x 512 decoder tokens, 8 x 1500 frames; 4 steps, a checkpoint at
+   step 2 whose restore must keep the K-major head K-major, steps 3-4
+   again bit for bit), mamba2-130m at full width and depth (8 x 512, 4
+   steps), zamba2-2.7b at full width and 2 of 9 units (8 x 512, 3 steps)
+   and llama-3.2-vision-11b at full width and 1 of 8 units (4 x 512
+   tokens, 4 x 1601 image embeddings, 3 steps); their f32 steps at 2 + 2
+   layers, 2 layers, 1 unit, and 1 self + the cross layer.
 
 The kernels phase also holds whisper's shapes (d 1280 projections with
 biases and the GELU MLP at M = 8, 8 x 256 and the encoder's 8 x 1500, the
@@ -148,7 +159,11 @@ out_proj, the shared block's projections and MLP, the unembed at N =
 160) and zamba2-2.7b's head dim 80, (8, 256, 32, 32, 80); and the train
 phase's products at M = 4096: each projection's forward (the gate's
 without SiLU, f32 out), dX (B K-major) and dW (K = 4096), the tied
-unembed's forward and its two f32 backward products (fma).
+unembed's forward and its two f32 backward products (fma); and the same
+for the other train phases (whisper at 8 x 1500 encoder and 8 x 512
+decoder rows, mamba2, zamba2, the vlm at 4 x 512 and its cross K/V at 4
+x 1601 image tokens), with each unembed at N 51866 / 50280 / 32000 /
+128256.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -361,6 +376,50 @@ def gemm_cases(torch):
                   False, None, bf, False, True))
     cases.append(("train unembed dW (f32 cotangent)", d, mt, vocab, f32,
                   False, None, bf, False, True))
+    # the other train phases' products, each as above: whisper at 8 x 1500
+    # encoder rows (its cross K/V projections have the q/k/v/o shape) and 8
+    # x 512 decoder rows, biased; mamba2 and zamba2 at 8 x 512; the vlm at
+    # 4 x 512 and its cross K/V over 4 x 1601 image tokens (no dX; dW's M
+    # padded to 6408).  Each unembed's forward and f32 backward: whisper's
+    # head K-major (its dX reads W.T row-major), mamba2's tied.
+    for prefix, m, bias, proj in (
+            ("train whisper encoder", 8 * 1500, "bias",
+             (("q/k/v/o", dw, dw, bf), ("up (f32 pre-activation)", dw, ffw,
+                                        f32), ("down", ffw, dw, bf))),
+            ("train whisper decoder", mt, "bias",
+             (("q/k/v/o", dw, dw, bf), ("up (f32 pre-activation)", dw, ffw,
+                                        f32), ("down", ffw, dw, bf))),
+            ("train mamba", mt, False,
+             (("in_proj", dm, 2 * im + 2 * 128 + 24, bf),
+              ("out_proj", im, dm, bf))),
+            ("train zamba", mt, False, tuple(
+                (name, k, n, f32 if act else bf)
+                for name, k, n, act in zproj)),
+            ("train vlm", 4 * 512, False, tuple(
+                (name, k, n, f32 if act else bf)
+                for name, k, n, act in vproj))):
+        for name, k, n, out in proj:
+            cases.append((f"{prefix} fwd {name}", m, k, n, bf, False, None,
+                          out, bias, True))
+            cases.append((f"{prefix} dX {name}", m, n, k, bf, True, None, bf,
+                          False, True))
+            cases.append((f"{prefix} dW {name}", k, m, n, bf, False, None, bf,
+                          False, True))
+    cases.append(("train vlm fwd cross k/v (4 x 1601 image tokens)", 4 * 1601,
+                  dv, kvv, bf, False, None, bf, False, True))
+    cases.append(("train vlm dW cross k/v (M padded to 6408)", dv, 6408, kvv,
+                  bf, False, None, bf, False, True))
+    for prefix, m, dd, v, head_kmajor in (
+            ("train whisper", mt, dw, 51866, True),
+            ("train mamba", mt, dm, 50280, True),
+            ("train zamba", mt, dz, 32000, False),
+            ("train vlm", 4 * 512, dv, 128256, False)):
+        cases.append((f"{prefix} fwd unembed (f32 out)", m, dd, v, bf,
+                      head_kmajor, None, f32, False, True))
+        cases.append((f"{prefix} unembed dX (f32 cotangent)", m, v, dd, f32,
+                      not head_kmajor, None, bf, False, True))
+        cases.append((f"{prefix} unembed dW (f32 cotangent)", dd, m, v, f32,
+                      False, None, bf, False, True))
     for (name, k, n) in (("k/v", d, kvd), ("down", ff, d)):
         for m in (1, 3, 8, 16):
             cases.append((f"decode edge {name} M={m} silu", m, k, n, bf,
@@ -462,7 +521,11 @@ def run_gemm_case(torch, timers, case, gen):
 
 def model_of(label: str) -> str:
     """The model whose serve path gives a kernels-phase case its shape."""
-    for prefix, model in (("train", "llama3.2-1b (train)"),
+    for prefix, model in (("train whisper", "whisper-large-v3 (train)"),
+                          ("train mamba", "mamba2-130m (train)"),
+                          ("train zamba", "zamba2-2.7b (train, 2 units)"),
+                          ("train vlm", "llama-3.2-vision-11b (train, 1 unit)"),
+                          ("train", "llama3.2-1b (train)"),
                           ("olmoe", "olmoe-1b-7b"),
                           ("vlm", "llama-3.2-vision-11b"),
                           ("whisper", "whisper-large-v3"),
@@ -1668,8 +1731,47 @@ def phase_serve_hybrid(torch, ctx):
 # phase: train
 # ---------------------------------------------------------------------------
 
-#: the train phase's run: batch, tokens a row, steps, checkpoint at
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 512, 6, 3
+#: the train phases, each a model at full width in bf16: its depth cut
+#: (``cut``, config overrides; {} for full depth), batch rows x tokens a
+#: row, steps, the step whose checkpoint the run resumes from (None: no
+#: resume), the f32 step's depth (``f32_cut``) and K1's wgmma launches a
+#: step for the cut config: every product's forward, remat recompute, dX
+#: and dW, and the unembed's forward (its dX and dW are the step's two fma
+#: launches).  A dense layer has 7 products (28 launches); whisper's
+#: encoder layer 6 (24) and decoder layer 10 with its cross K/V (40); a
+#: Mamba2 layer 2 (8); zamba2's shared block 7 an application (28); a vlm
+#: cross layer 7, whose K/V projections of the image embeddings need no dX
+#: (26).
+TRAIN_PHASES = {
+    "train": dict(
+        arch="llama3.2-1b", cut={}, batch=(8, 512), steps=6, save_at=3,
+        f32_cut=dict(num_layers=2),
+        wgmma=lambda c: 28 * c.num_layers + 1),
+    "train_audio": dict(
+        arch="whisper-large-v3", cut={}, batch=(8, 512), steps=4, save_at=2,
+        f32_cut=dict(num_layers=2, encoder_layers=2),
+        wgmma=lambda c: 24 * c.encoder_layers + 40 * c.num_layers + 1),
+    "train_ssm": dict(
+        arch="mamba2-130m", cut={}, batch=(8, 512), steps=4, save_at=None,
+        f32_cut=dict(num_layers=2),
+        wgmma=lambda c: 8 * c.num_layers + 1),
+    # 2 of 9 units: the full depth's 2.42 B parameters are ~34 GB of
+    # state, which the update doubles
+    "train_hybrid": dict(
+        arch="zamba2-2.7b", cut=dict(num_layers=12), batch=(8, 512),
+        steps=3, save_at=None, f32_cut=dict(num_layers=6), f32_spread=True,
+        wgmma=lambda c: 28 * (c.num_layers // c.attn_period)
+        + 8 * c.num_layers + 1),
+    # 1 of 8 units (4 self layers and the cross layer, 2.14 B parameters):
+    # the full depth's 9.78 B are ~137 GB of state.  Its f32 step keeps 1
+    # self and the cross layer: one unit's 34 GB of f32 state, doubled by
+    # the update, does not fit the card
+    "train_vlm": dict(
+        arch="llama-3.2-vision-11b", cut=dict(num_layers=5), batch=(4, 512),
+        steps=3, save_at=None, f32_cut=dict(num_layers=2, cross_attn_period=2),
+        wgmma=lambda c: (c.num_layers // c.cross_attn_period)
+        * (28 * (c.cross_attn_period - 1) + 26) + 1),
+}
 #: the bf16 step against the plain versions: relative tolerance of the
 #: loss (a mean over 4096 tokens of bf16 activations, ~2**-9 a rounding)
 #: and of the gradient norm (the kernel path also rounds each product's
@@ -1684,6 +1786,19 @@ TRAIN_BF16_TOL = {"loss": 5e-3, "grad_norm": 3e-2}
 #: one: there (and everywhere) the parameters are held within 2 lr.
 TRAIN_F32_TOL = {"metrics": 1e-5, "grad": 1e-4, "param": 1e-5,
                  "grad_floor": 1e-3}
+#: gradient leaves that are 0 in exact arithmetic: a key bias adds q . bk
+#: to every score of a query's row, which its softmax cancels.  Both paths
+#: give roundoff there, so its error over its own max is noise: each path's
+#: max |g| is held within ``ZERO_GRAD_TOL`` of the tree's largest gradient.
+ZERO_GRAD_LEAVES = ("/bk",)
+ZERO_GRAD_TOL = 1e-6
+#: a phase whose f32 step sets ``f32_spread`` (zamba2: a loss whose
+#: gradients one f32 ulp of weight noise moves past 1e-4 of the leaf's max)
+#: also runs the plain versions from weights times (1 + 1e-7 N(0, 1)); each
+#: gradient leaf is then held within the larger of ``TRAIN_F32_TOL``'s and
+#: ``SPREAD_FACTOR`` times that run's largest distance from the plain one
+#: (relative to the leaf's max, over the tree)
+SPREAD_FACTOR = 4
 
 
 def plain_matmul(torch):
@@ -1784,18 +1899,40 @@ def k1_split(torch, run):
     return split, {k: v for k, v in counts.items() if not k.startswith("range")}
 
 
-def phase_train(torch, ctx):
-    """Full-width llama3.2-1b in bf16 (seeded weights, the chunked
-    attention path as the reference trains, remat) on the synthetic
-    pipeline, batch 8 x 512: 6 steps through ``Trainer`` with a
-    checkpoint at step 3, then steps 4-6 again from the checkpoint in a
-    fresh state: equal losses and parameters, bit for bit.  K1's launches
-    by path over the 6 steps (every bf16 product on wgmma; fma only at the
-    unembed's two f32-cotangent products a step; K2 none).  Then one bf16
-    step against the plain versions, one f32 step at 2 layers against them
-    (loss, every gradient leaf, every parameter after the step), and one
-    timed step: K1's device time by role (``k1_split``), the GEMM shapes
-    the step issues and their registry provenance."""
+def train_extras(torch, cfg, n: int, step: int, dtype):
+    """A train batch's extra inputs at ``step``: seeded image embeddings
+    (vlm) or frame embeddings (audio), n rows; none for the other
+    families."""
+    if cfg.family == "vlm":
+        return image_embeds(torch, cfg, n, 1000 + step, dtype)
+    if cfg.family == "audio":
+        return encoder_embeds(torch, cfg, n, 1000 + step, dtype)
+    return {}
+
+
+def run_from(trainer, held: list, start_step: int = 0):
+    """``trainer.run`` from the state in the one-element list ``held``,
+    which it empties: no frame here keeps that state, so the run frees each
+    step's input once it has the next and two states are live at most.  A
+    caller that kept its own reference would hold a third from the second
+    step on."""
+    return trainer.run(held.pop(), start_step=start_step)
+
+
+def phase_train(torch, ctx, phase: str = "train"):
+    """One train phase of ``TRAIN_PHASES``: its model at full width in bf16
+    (seeded weights, the chunked attention path as the reference trains,
+    remat) on the synthetic pipeline, seeded extra inputs beside the tokens
+    (vlm, audio).  Its steps through ``Trainer``; with ``save_at``, a
+    checkpoint there, then the steps after it again from the checkpoint in
+    a fresh state: equal losses and parameters, bit for bit.  K1's launches
+    by path over the steps (every bf16 product on wgmma; fma only at the
+    unembed's two f32-cotangent products a step; K2 none); every gradient
+    leaf finite in every step.  Then one bf16 step against the plain
+    versions, one f32 step at ``f32_cut`` against them (loss, every
+    gradient leaf, every parameter after the step), and one timed step:
+    K1's device time by role (``k1_split``), the GEMM shapes the step
+    issues and their registry provenance."""
     import contextlib
     import dataclasses
     import shutil
@@ -1808,40 +1945,63 @@ def phase_train(torch, ctx):
     from repro_torch.core import GLOBAL_REGISTRY, capture_gemm_shapes
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.models import build_model
-    from repro_torch.models.params import tree_paths
+    from repro_torch.models.params import map_tree, tree_paths
     from repro_torch.optim import AdamW, warmup_cosine
     from repro_torch.train import (Trainer, TrainerConfig,
                                    abstract_train_state, init_train_state,
                                    make_train_step)
+    from repro_torch.train import trainer as trainer_mod
 
+    spec = TRAIN_PHASES[phase]
+    steps, save_at = spec["steps"], spec["save_at"]
     t_phase = time.perf_counter()
     ctx.clear()
     free_card(torch)
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="bfloat16",
-                              attention_impl="chunked", remat=True)
+    cfg = dataclasses.replace(get_config(spec["arch"]), dtype="bfloat16",
+                              attention_impl="chunked", remat=True,
+                              **spec["cut"])
     model = build_model(cfg)
-    opt = AdamW(learning_rate=warmup_cosine(1e-3, 10, TRAIN_STEPS))
-    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=TRAIN_S, global_batch=TRAIN_B),
-                         device="cuda")
-    tokens = TRAIN_B * TRAIN_S
+    opt = AdamW(learning_rate=warmup_cosine(1e-3, 10, steps))
+    b, s = spec["batch"]
+    tokens_of = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=s, global_batch=b),
+                              device="cuda")
+
+    def pipe(step, c=cfg):
+        return dict(tokens_of(step), **train_extras(
+            torch, c, b, step, getattr(torch, c.dtype)))
+    tokens = b * s
     ckdir = os.path.join(HERE, "build", "train_checkpoint")
-    shutil.rmtree(ckdir, ignore_errors=True)
-    os.makedirs(ckdir)
-    out = {"phase": "train", "main_run": "run",
+    out = {"phase": phase, "main_run": "run",
            "card": torch.cuda.get_device_name(0),
            "model": cfg.name, "dtype": cfg.dtype, "params":
-           model.param_count(), "batch": [TRAIN_B, TRAIN_S],
+           model.param_count(), "depth_cut": spec["cut"], "batch": [b, s],
+           "extra_inputs": sorted(train_extras(torch, cfg, 1, 0,
+                                               torch.bfloat16)),
            "attention_impl": cfg.attention_impl, "remat": cfg.remat_policy,
-           "schedule": f"warmup_cosine(1e-3, 10, {TRAIN_STEPS})",
-           "disk_free_gb": shutil.disk_usage(ckdir).free / 1e9}
+           "schedule": f"warmup_cosine(1e-3, 10, {steps})"}
+    if save_at is not None:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        os.makedirs(ckdir)
+        out["disk_free_gb"] = shutil.disk_usage(ckdir).free / 1e9
 
     def tcfg(total, every):
         # step_deadline_s syncs each step, so step_walls holds its wall
         return TrainerConfig(total_steps=total, log_every=1,
                              checkpoint_every=every, step_deadline_s=1e9)
 
-    # index_select's backward (the embedding's gradient) adds with atomics
+    # every gradient of every step, checked finite on the card (one flag a
+    # step, read once at the end)
+    finite = []
+    real_vg = trainer_mod._value_and_grad
+
+    def checked_vg(*a, **kw):
+        loss, metrics, grads = real_vg(*a, **kw)
+        finite.append(torch.stack([torch.isfinite(g).all()
+                                   for g in tree_paths(grads).values()]).all())
+        return loss, metrics, grads
+
+    # index_select's backward (the embedding gradient) adds with atomics
     # on the card; a bit-equal resume needs its deterministic algorithm
     torch.use_deterministic_algorithms(True, warn_only=True)
     out["deterministic_algorithms"] = (
@@ -1850,29 +2010,37 @@ def phase_train(torch, ctx):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            # -- 6 steps, checkpoint at 3 (launch counts from 0) ----------
+            # -- the steps (checkpoint at save_at; launch counts from 0) --
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            state = init_train_state(model, opt, 0, device="cuda")
+            held = [init_train_state(model, opt, 0, device="cuda")]
             torch.cuda.synchronize()
             out["init_seconds"] = time.perf_counter() - t0
             out["state_gb"] = sum(
                 t.numel() * t.element_size() for tree in
-                (state.params, state.opt.m, state.opt.v, state.opt.master)
+                (held[0].params, held[0].opt.m, held[0].opt.v,
+                 held[0].opt.master)
                 for t in tree_paths(tree).values()) / 1e9
-            assert out["disk_free_gb"] > 1.1 * out["state_gb"], (
-                "no room for the step-3 checkpoint", out["disk_free_gb"],
-                out["state_gb"])
-            ck = Checkpointer(ckdir, keep=1)
+            first_steps = steps if save_at is None else save_at
+            ck = None
+            if save_at is not None:
+                assert out["disk_free_gb"] > 1.1 * out["state_gb"], (
+                    "no room for the checkpoint", out["disk_free_gb"],
+                    out["state_gb"])
+                ck = Checkpointer(ckdir, keep=1)
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            first = Trainer(model, opt, pipe, tcfg(TRAIN_SAVE_AT,
-                                                   TRAIN_SAVE_AT),
-                            checkpointer=ck)
-            state, hist_a = first.run(state)
-            run1 = time.perf_counter() - t0
-            second = Trainer(model, opt, pipe, tcfg(TRAIN_STEPS, 10 ** 9))
-            state, hist_b = second.run(state, start_step=TRAIN_SAVE_AT)
+            with mock.patch.object(trainer_mod, "_value_and_grad",
+                                   checked_vg):
+                first = Trainer(model, opt, pipe, tcfg(first_steps,
+                                                       first_steps),
+                                checkpointer=ck)
+                state, hist_a = run_from(first, held)
+                run1 = time.perf_counter() - t0
+                second = Trainer(model, opt, pipe, tcfg(steps, 10 ** 9))
+                held = [state]
+                del state
+                state, hist_b = run_from(second, held, first_steps)
             torch.cuda.synchronize()
             launches = kernels.launch_counts()
             gemm_paths = kernels.gemm_launches_by_path()
@@ -1884,29 +2052,35 @@ def phase_train(torch, ctx):
                           "flash_launches_by_path": flash_paths}
             out.update(
                 losses=[l for _, l in history], step_walls=walls,
-                checkpoint_save_seconds=run1 - sum(first.step_walls),
-                tok_per_s_warm=tokens * (TRAIN_STEPS - 1) / sum(walls[1:]),
+                grads_finite_by_step=[bool(f) for f in finite],
+                tok_per_s_warm=tokens * (steps - 1) / sum(walls[1:]),
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if save_at is not None:
+                out["checkpoint_save_seconds"] = run1 - sum(first.step_walls)
             final = {p: t for p, t in tree_paths(state.params).items()}
             del state, first, second
             free_card(torch)
             # -- resume from the checkpoint in a fresh state ---------------
-            t0 = time.perf_counter()
-            resumed = ck.restore(TRAIN_SAVE_AT,
-                                 abstract_train_state(model, opt),
-                                 device="cuda")
-            torch.cuda.synchronize()
-            out["checkpoint_restore_seconds"] = time.perf_counter() - t0
-            assert int(resumed.step) == TRAIN_SAVE_AT
-            resumed, hist_r = Trainer(model, opt, pipe, tcfg(
-                TRAIN_STEPS, 10 ** 9)).run(resumed, start_step=TRAIN_SAVE_AT)
-            out["resumed_losses"] = [l for _, l in hist_r]
-            out["resume_bit_equal"] = hist_r == hist_b and all(
-                torch.equal(t, final[p])
-                for p, t in tree_paths(resumed.params).items())
-            del resumed, final
-            free_card(torch)
-            shutil.rmtree(ckdir, ignore_errors=True)
+            if save_at is not None:
+                t0 = time.perf_counter()
+                held = [ck.restore(save_at, abstract_train_state(model, opt),
+                                   device="cuda")]
+                torch.cuda.synchronize()
+                out["checkpoint_restore_seconds"] = time.perf_counter() - t0
+                assert int(held[0].step) == save_at
+                out["restored_layouts_as_init"] = all(
+                    t.stride() == final[p].stride()
+                    for p, t in tree_paths(held[0].params).items())
+                resumed, hist_r = run_from(Trainer(model, opt, pipe, tcfg(
+                    steps, 10 ** 9)), held, save_at)
+                out["resumed_losses"] = [l for _, l in hist_r]
+                out["resume_bit_equal"] = hist_r == hist_b and all(
+                    torch.equal(t, final[p])
+                    for p, t in tree_paths(resumed.params).items())
+                del resumed
+                free_card(torch)
+                shutil.rmtree(ckdir, ignore_errors=True)
+            del final
             # -- one bf16 step: K1 against the plain versions --------------
             step = make_train_step(model, opt)
             batch = pipe(0)
@@ -1916,10 +2090,10 @@ def phase_train(torch, ctx):
                 kernels.reset_launch_counts()
                 with (plain_matmul(torch) if name == "plain"
                       else contextlib.nullcontext()):
-                    _, m = step(state, batch)
+                    new, m = step(state, batch)
                 hold[name] = ({k: float(m[k]) for k in ("loss", "grad_norm")},
                               kernels.launch_counts()["gemm"])
-                del state, m
+                del state, new, m
                 free_card(torch)
             out["bf16_step_vs_plain"] = {
                 "kernel": hold["kernel"][0], "plain": hold["plain"][0],
@@ -1936,11 +2110,12 @@ def phase_train(torch, ctx):
                 lookups[(op, str(dtype).split(".")[1], tuple(shape))] = (
                     res.source, res.config.schedule)
                 return res
+            batch2 = pipe(2)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with mock.patch.object(GLOBAL_REGISTRY, "lookup_op", lookup), \
                     capture_gemm_shapes(calls=True) as shapes:
-                split, counts = k1_split(torch, lambda: step(state, pipe(2)))
+                split, counts = k1_split(torch, lambda: step(state, batch2))
             out["timed_step_wall"] = time.perf_counter() - t0
             out["k1_device_ms_by_role"] = split
             out["k1_launches_by_role"] = counts
@@ -1952,12 +2127,13 @@ def phase_train(torch, ctx):
                                                     "schedule": sched}
                 for (op, dt, shp), (src, sched) in sorted(lookups.items())
                 if op == "gemm"}
-            del state
+            del state, batch, batch2
             free_card(torch)
-            # -- one f32 step at 2 layers against the plain versions -------
-            cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=2)
+            # -- one f32 step at f32_cut against the plain versions --------
+            cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                        **spec["f32_cut"])
             m32 = build_model(cfg32)
-            b32 = pipe(3)
+            b32 = pipe(3, cfg32)
             res = {}
             for name in ("kernel", "plain"):
                 st = init_train_state(m32, opt, 1, device="cuda")
@@ -1966,33 +2142,66 @@ def phase_train(torch, ctx):
                     kernels.reset_launch_counts()
                     loss, metrics, grads = grads_of(torch, m32, st.params, b32)
                     new, sm = make_train_step(m32, opt)(st, b32)
-                    res[name] = (loss, metrics, grads, new.params, sm,
+                    # the kernel run's trees wait on the host
+                    keep = (lambda d: d) if name == "plain" else (
+                        lambda d: {p: t.cpu() for p, t in d.items()})
+                    res[name] = (loss, metrics, keep(grads),
+                                 keep(tree_paths(new.params)), sm,
                                  kernels.gemm_launches_by_path())
-                del st
+                del st, new, grads
+                free_card(torch)
             kern, plain = res["kernel"], res["plain"]
             rel = lambda a, b: abs(float(a) - float(b)) / max(  # noqa: E731
                 abs(float(b)), 1e-30)
             metric_err = max([rel(kern[0], plain[0])]
                              + [rel(kern[1][k], plain[1][k]) for k in plain[1]]
                              + [rel(kern[4][k], plain[4][k]) for k in plain[4]])
-            grad_err = {p: ((g - plain[2][p]).abs().max()
-                            / plain[2][p].abs().max().clamp(min=1e-30)).item()
-                        for p, g in kern[2].items()}
+
+            def leaf_err(g, want):
+                return ((g.to(want.device) - want).abs().max()
+                        / want.abs().max().clamp(min=1e-30)).item()
+            top = max(g.abs().max().item() for g in plain[2].values())
+            zero = {p: [kern[2][p].abs().max().item() / top,
+                        g.abs().max().item() / top]
+                    for p, g in plain[2].items()
+                    if p.endswith(ZERO_GRAD_LEAVES)}
+            grad_err = {p: leaf_err(g, plain[2][p])
+                        for p, g in kern[2].items() if p not in zero}
+            grad_tol = TRAIN_F32_TOL["grad"]
+            spread = None
+            if spec.get("f32_spread"):
+                gen = torch.Generator(device="cuda").manual_seed(7)
+                st = init_train_state(m32, opt, 1, device="cuda")
+                noisy = map_tree(lambda _p, t: t * (1 + 1e-7 * torch.randn(
+                    t.shape, generator=gen, device="cuda")), st.params)
+                del st
+                with plain_matmul(torch):
+                    _, _, g_noise = grads_of(torch, m32, noisy, b32)
+                spread = max(leaf_err(g, plain[2][p])
+                             for p, g in g_noise.items() if p not in zero)
+                grad_tol = max(grad_tol, SPREAD_FACTOR * spread)
+                del noisy, g_noise
             ptol = TRAIN_F32_TOL["param"]
             lr1 = float(opt.lr(torch.ones((), dtype=torch.int32)))
             param_ok, param_err = {}, {}
-            for p, t in tree_paths(kern[3]).items():
-                want, g = tree_paths(plain[3])[p], plain[2][p].abs()
+            for p, t in kern[3].items():
+                want, g = plain[3][p], plain[2][p].abs()
+                t = t.to(want.device)
                 big = g >= TRAIN_F32_TOL["grad_floor"] * g.max()
                 param_ok[p] = bool(
                     torch.allclose(t[big], want[big], atol=ptol, rtol=ptol)
                     and (t - want).abs().max() <= 2 * lr1)
-                param_err[p] = [(t - want)[big].abs().max().item(),
+                param_err[p] = [(t - want)[big].abs().max().item()
+                                if big.any() else 0.0,
                                 (t - want).abs().max().item()]
             out["f32_step_vs_plain"] = {
-                "layers": 2, "loss": [float(kern[0]), float(plain[0])],
+                "cut": spec["f32_cut"], "params": m32.param_count(),
+                "loss": [float(kern[0]), float(plain[0])],
                 "metrics_max_rel_err": metric_err,
-                "grad_max_rel_err": grad_err, "lr": lr1,
+                "grad_max_rel_err": grad_err, "grad_tol": grad_tol,
+                "plain_spread_under_ulp_noise": spread,
+                "zero_grad_leaves_max_over_top_kernel_plain": zero,
+                "lr": lr1,
                 "param_max_abs_err_large_grad_and_all": param_err,
                 "kernel_gemm_launches_by_path": kern[5],
                 "plain_gemm_launches_by_path": plain[5],
@@ -2006,15 +2215,19 @@ def phase_train(torch, ctx):
     emit(out)
 
     # the checks, after the line is out
-    per_step = 28 * cfg.num_layers + 1
+    per_step = spec["wgmma"](cfg)
     assert all(math.isfinite(l) for l in out["losses"]), out["losses"]
-    assert len(out["losses"]) == TRAIN_STEPS, out["losses"]
-    assert out["resume_bit_equal"], (out["losses"], out["resumed_losses"])
+    assert len(out["losses"]) == steps, out["losses"]
+    assert out["grads_finite_by_step"] == [True] * steps, out[
+        "grads_finite_by_step"]
+    if save_at is not None:
+        assert out["restored_layouts_as_init"], out
+        assert out["resume_bit_equal"], (out["losses"],
+                                         out["resumed_losses"])
     assert launches["flash_attention"] == 0, flash_paths
     assert gemm_paths["decode"] == 0 and gemm_paths["wmma"] == 0, gemm_paths
-    assert gemm_paths["wgmma"] == per_step * TRAIN_STEPS, (gemm_paths,
-                                                            per_step)
-    assert gemm_paths["fma"] == 2 * TRAIN_STEPS, gemm_paths
+    assert gemm_paths["wgmma"] == per_step * steps, (gemm_paths, per_step)
+    assert gemm_paths["fma"] == 2 * steps, gemm_paths
     roles = out["k1_launches_by_role"]
     assert roles.get("unembed_dX") == roles.get("unembed_dW") == 1, roles
     assert sum(roles.values()) == per_step + 2, roles
@@ -2027,7 +2240,8 @@ def phase_train(torch, ctx):
     assert sum(f32["plain_gemm_launches_by_path"].values()) == 0, f32
     assert f32["kernel_gemm_launches_by_path"]["fma"] > 0, f32
     assert f32["metrics_max_rel_err"] <= TRAIN_F32_TOL["metrics"], f32
-    assert max(f32["grad_max_rel_err"].values()) <= TRAIN_F32_TOL["grad"], f32
+    assert max(f32["grad_max_rel_err"].values()) <= f32["grad_tol"], f32
+    assert all(max(v) <= ZERO_GRAD_TOL for v in zero.values()), f32
     assert all(param_ok.values()), f32
     return out
 
@@ -2057,7 +2271,7 @@ def summarize(rows, launches, paths, features, families):
     serve phase's launches by path.  ``launches`` sums the main-path runs of
     every model (the serve phase; the continuous run of serve_moe,
     serve_vlm, serve_stablelm, serve_audio and serve_hybrid; serve_ssm's
-    forced wave run; the train phase's 6 steps; each with the counts set
+    forced wave run; each train phase's steps; each with the counts set
     to 0 before it);
     ``launches_by_run`` splits it, and ``launches_by_pass`` has the
     launches by path of every serve_features run and every run of the
@@ -2126,8 +2340,8 @@ def main(argv=None) -> int:
     features = phase_serve_features(torch, ctx)
     families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx),
                 phase_serve_stablelm(torch, ctx), phase_serve_audio(torch, ctx),
-                phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx),
-                phase_train(torch, ctx)]
+                phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx)]
+    families += [phase_train(torch, ctx, p) for p in TRAIN_PHASES]
     print(card, flush=True)
     emit({"kernels": summarize(rows, launches, paths, features, families)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,7 +8,8 @@ or a sequence index is itself, and the parts are joined by ``__``
 (``.params__blocks__attn__wq``, ``.opt__.m__embedding``).  bfloat16,
 which numpy cannot store, is written as its ``uint16`` view with logical
 dtype ``bfloat16``.  Each package restores what the other wrote from the
-same state.
+same state.  A K-major leaf is stored as the reference's row-major array
+of its shape and restored in its template's layout.
 
 A step is written into ``step_XXXXXXXX.tmp`` and renamed into place, so a
 partial checkpoint is never visible; ``keep`` bounds how many stay.
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DeviceLike
+from repro_torch.models.params import in_layout_of
 
 _THREADS = 8
 
@@ -98,10 +100,11 @@ def _read_leaf(path: str, name: str, meta: dict, like,
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if not isinstance(like, torch.Tensor):
+        return t if device is None else t.to(device)
     dev = device if device is not None else (
-        like.device if isinstance(like, torch.Tensor)
-        and like.device.type != "meta" else "cpu")
-    return t.to(device=dev, dtype=getattr(like, "dtype", t.dtype))
+        like.device if like.device.type != "meta" else "cpu")
+    return in_layout_of(like, t, like.dtype, dev)
 
 
 class Checkpointer:
@@ -141,10 +144,10 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, step: int, target: Any, device: DeviceLike = None) -> Any:
-        """``target`` gives the tree's structure and each leaf's dtype (a
-        tensor, e.g. a ``meta`` one from ``abstract_train_state``).  Leaves
-        land on ``device``; None: each target leaf's own (the CPU for
-        ``meta``)."""
+        """``target`` gives the tree's structure and each leaf's dtype and
+        strides (a tensor, e.g. a ``meta`` one from
+        ``abstract_train_state``).  Leaves land on ``device``; None: each
+        target leaf's own (the CPU for ``meta``)."""
         path = self._step_dir(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)

@@ -125,7 +125,11 @@ class _Matmul(torch.autograd.Function):
     operands' dtype promoted with the output's: bf16 for a bf16 projection,
     f32 for the unembed's f32 cotangent (both operands upcast for it).
     dX = dZ @ w.T reads ``w`` K-major, no copy; dW = x.T @ dZ copies x.T,
-    since the kernel reads its left operand with unit stride over K.
+    since the kernel reads its left operand with unit stride over K.  A
+    bf16 dW whose M (its K) is not a multiple of 8 (vlm's cross K/V over 4
+    x 1601 image tokens) pads x.T and dZ with zero rows to one: the bf16
+    kernels read rows in 16-byte chunks, so the product stays on them
+    instead of WMMA, and the zeros add nothing to it.
     Each product runs inside a profiler range, ``matmul.forward``,
     ``matmul.dX`` or ``matmul.dW``, so a trace splits the GEMM's time by
     role (the dW range also holds the x.T copy).
@@ -168,7 +172,12 @@ class _Matmul(torch.autograd.Function):
                 dx = prod(dz_p, w.to(pdt).t(), out_dtype=x2.dtype)
         if fctx.needs_input_grad[1]:
             with record_function("matmul.dW"):
-                dw = prod(x2.to(pdt).t().contiguous(), dz_p, out_dtype=w.dtype)
+                xt = x2.to(pdt).t()
+                pad = -x2.shape[0] % 8 if pdt == torch.bfloat16 else 0
+                if pad:
+                    xt = torch.nn.functional.pad(xt, (0, pad))
+                    dz_p = torch.nn.functional.pad(dz_p, (0, 0, 0, pad))
+                dw = prod(xt.contiguous(), dz_p, out_dtype=w.dtype)
         if fctx.needs_input_grad[2]:
             db = dz.float().sum(0).to(bias_dtype)
         return dx, dw, db, None, None, None, None

@@ -16,6 +16,12 @@ It first prints the hardware profile the tuning registry is keyed by and
 the tuning files it loaded, as ``launch.serve`` does; then the model, one
 ``step N  loss L`` line every 10 steps, ``done at step N``, and with
 ``--stats`` the step rate and tokens/s.
+
+The dense, moe, ssm and hybrid families train here.  The vlm and audio
+families need image or frame embeddings beside the tokens, which the token
+pipeline does not make (nor does the reference's launcher): it refuses
+them.  ``make_train_step`` and ``Trainer`` train them on batches that
+carry those inputs.
 """
 from __future__ import annotations
 
@@ -67,6 +73,14 @@ def main(argv=None) -> None:
     ap.add_argument("--trace-dir", default=None,
                     help="write a torch.profiler trace of the run here")
     args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if cfg.family in ("vlm", "audio"):
+        raise SystemExit(
+            f"{cfg.name}: the {cfg.family} family needs "
+            f"{'image' if cfg.family == 'vlm' else 'frame'} embeddings "
+            "beside the tokens, which the token pipeline does not make; "
+            "train it through make_train_step or Trainer with a batch that "
+            "carries them")
 
     device = resolve_device(args.device)
     hardware = resolve_hardware(args.hardware, device)
@@ -83,7 +97,6 @@ def main(argv=None) -> None:
         print("[tuned] no tuning DB found; using the profile's default "
               "schedules")
 
-    cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)

@@ -28,6 +28,7 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.models.params import map_tree
 
 # ---------------------------------------------------------------------------
 # Templates
@@ -101,15 +102,21 @@ def _shared_attn_apply(cfg, sp, x, positions, kv_cache=None, cache_offset=None,
     return x + L.mlp(sp["mlp"], L.apply_norm(sp["ln2"], x, eps=cfg.norm_eps))
 
 
-def _stacks(cfg, params):
+def _stacks(cfg, params, train: bool = False):
     """(layer params, index of its state in the cache's leading dims) of
     every Mamba2 layer in order: (layer,) for the ssm family, (unit,
-    layer) for the hybrid."""
+    layer) for the hybrid.  ``train``: the layers come from one ``unbind``
+    per leaf (``T._unbound_layers``), not a select each."""
     if cfg.family == "ssm":
-        return [(T._layer(params["blocks"], i), (i,))
-                for i in range(cfg.num_layers)]
-    return [(T._layer(T._layer(params["units"], u), i), (u, i))
-            for u in range(_units(cfg)) for i in range(cfg.attn_period)]
+        blocks = params["blocks"]
+        idx = [(i,) for i in range(cfg.num_layers)]
+    else:
+        blocks = map_tree(lambda _p, x: x.flatten(0, 1), params["units"])
+        idx = [(u, i) for u in range(_units(cfg))
+               for i in range(cfg.attn_period)]
+    if train:
+        return list(zip(T._unbound_layers(blocks), idx))
+    return [(T._layer(blocks, j), ix) for j, ix in enumerate(idx)]
 
 
 def _state_at(states, idx):
@@ -121,14 +128,27 @@ def _state_at(states, idx):
 # ---------------------------------------------------------------------------
 
 def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """Training / scoring trunk -> (final hidden pre-norm (B, S, D), 0.0).
+
+    A training forward (params under grad) takes the layers by unbind and,
+    with ``cfg.remat``, recomputes each Mamba2 layer and each application
+    of the shared block in the backward.  The reference remats each whole
+    unit of the hybrid; the math is the same at any granularity, and one
+    Mamba2 layer's SSD intermediates are the most a backward holds here.
+    The shared block's gradient sums over its applications."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = T._embed(cfg, params, tokens)
     pos = T._positions(b, s, tokens.device)
-    for bp, idx in _stacks(cfg, params):
+    train = T._requires_grad(params)
+    mamba, shared = _mamba_block, _shared_attn_apply
+    if train:
+        mamba = T._maybe_remat(cfg, mamba)
+        shared = T._maybe_remat(cfg, shared)
+    for bp, idx in _stacks(cfg, params, train):
         if cfg.family == "hybrid" and idx[1] == 0:
-            x = _shared_attn_apply(cfg, params["shared_attn"], x, pos)
-        x = _mamba_block(cfg, bp, x)
+            x = shared(cfg, params["shared_attn"], x, pos)
+        x = mamba(cfg, bp, x)
     return x, 0.0
 
 

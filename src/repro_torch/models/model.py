@@ -44,12 +44,8 @@ class Model:
 
     def forward_hidden(self, params, batch: Dict[str, torch.Tensor]):
         """-> (final hidden pre-norm (B, S, D), aux_loss), for the loss's
-        chunked unembed.  The transformer families only."""
-        if self.cfg.family in SSM_FAMILIES:
-            raise NotImplementedError(
-                f"forward_hidden of the {self.cfg.family} family is not "
-                "ported (training covers the dense and moe families)")
-        return T.forward_hidden(self.cfg, params, batch)
+        chunked unembed."""
+        return self._mod().forward_hidden(self.cfg, params, batch)
 
     def unembed_weight(self, params) -> torch.Tensor:
         """(d_model, vocab); the tied head is ``embedding.t()``, a view."""

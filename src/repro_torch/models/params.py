@@ -71,6 +71,19 @@ def map_trees(fn, tree, *others):
     return tuple(map_tree(lambda p, _x: res[p][j], tree) for j in range(n))
 
 
+def in_layout_of(like: torch.Tensor, t: torch.Tensor, dtype=None,
+                 device=None) -> torch.Tensor:
+    """``t`` (``like``'s shape) with ``like``'s strides, in ``dtype`` and on
+    ``device`` (default: ``t``'s): ``t`` cast and moved when the strides
+    already agree, else a copy into ``torch.empty_like(like)``.  Keeps a
+    K-major leaf K-major through what would lay it out row-major."""
+    dtype = dtype or t.dtype
+    device = device or t.device
+    if t.stride() == like.stride():
+        return t.to(device=device, dtype=dtype)
+    return torch.empty_like(like, dtype=dtype, device=device).copy_(t)
+
+
 def _leaf_seed(seed: int, path: str) -> int:
     digest = int.from_bytes(hashlib.sha256(path.encode()).digest()[:4], "big")
     return (int(seed) * 0x9E3779B1 + digest) % (2 ** 63)
@@ -140,19 +153,19 @@ def train_state_from_numpy(state, device: DeviceLike = None, template=None):
     ``params``, ``opt`` with ``count`` / ``m`` / ``v`` / ``master``, and
     ``compression`` with ``residual``, or None) as the port's
     ``TrainState``, bit for bit, every tree through
-    :func:`params_from_numpy` (``template`` lays out the params' K-major
-    leaves)."""
+    :func:`params_from_numpy` (``template`` lays out the K-major leaves of
+    the params and of every tree shaped like them)."""
     from repro_torch.optim.adamw import AdamWState
     from repro_torch.optim.compression import CompressionState
     from repro_torch.train.trainer import TrainState
 
-    conv = lambda tree: params_from_numpy(tree, device)  # noqa: E731
+    conv = lambda tree: params_from_numpy(tree, device, template)  # noqa: E731
     opt = state.opt
     comp = state.compression
     return TrainState(
-        step=conv(state.step),
-        params=params_from_numpy(state.params, device, template),
-        opt=AdamWState(conv(opt.count), conv(opt.m), conv(opt.v),
-                       conv(opt.master)),
+        step=params_from_numpy(state.step, device),
+        params=conv(state.params),
+        opt=AdamWState(params_from_numpy(opt.count, device), conv(opt.m),
+                       conv(opt.v), conv(opt.master)),
         compression=None if comp is None
         else CompressionState(residual=conv(comp.residual)))

@@ -88,6 +88,16 @@ def _chunk_len(s: int, chunk: int) -> int:
     return length
 
 
+def _intra_chunk_decay(seg, causal):
+    """``exp(seg)`` on and below the diagonal, 0 above it: the reference's
+    ``where(causal, exp(seg), 0)``, bit for bit, with ``seg`` masked before
+    the exp.  Above the diagonal ``seg`` is a positive sum of ``dt * |A|``
+    that can overflow exp to inf (past 88.7 in f32; a full-width chunk of
+    128 reaches it), and exp's backward multiplies the zero gradient there
+    by it: NaN, even where a ``where`` drops the inf in the forward."""
+    return torch.exp(seg.masked_fill(~causal, float("-inf")))
+
+
 def ssm_block(params, x: torch.Tensor, cfg: ModelConfig,
               return_state: bool = False, valid_mask=None):
     """Full-sequence SSD forward.  x: (B, S, D).
@@ -135,9 +145,7 @@ def ssm_block(params, x: torch.Tensor, cfg: ModelConfig,
     cb = einsum("bcln,bcsn->bcls", cc, bc)                             # (B,nc,L,L)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]                # (B,nc,L,S,H)
     causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
-    # a where, not a 0/1 product: exp(seg) overflows to inf above the
-    # diagonal, and inf * 0 is NaN
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    decay = _intra_chunk_decay(seg, causal[None, None, :, :, None])
     scores = cb[..., None] * decay * dtc[:, :, None, :, :]             # (B,nc,L,S,H)
     y_diag = einsum("bclsh,bcshp->bclhp", scores, xc)
 

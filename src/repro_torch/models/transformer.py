@@ -4,11 +4,13 @@ kernel and the flash kernel.
 
 Layer params are stacked on a leading "layer" dim, as in the reference; the
 stack runs as a Python loop over that dim where the reference uses
-``lax.scan``.  A training forward (the dense and moe stacks under grad)
-takes the layers with one ``unbind`` per leaf and, with ``cfg.remat``,
-recomputes each block in the backward (``torch.utils.checkpoint``).  KV caches are ``{"self": (K, V)}`` with K, V of shape
-(L, B, S, KV, hd), updated in place; an int8 cache (``cfg.kv_quant``) holds
-``{"q", "s"}`` dicts in place of K and V.
+``lax.scan``.  A training forward (params under grad) takes the layers
+with one ``unbind`` per leaf and, with ``cfg.remat``, recomputes each
+block in the backward (``torch.utils.checkpoint``); its cross layers
+project their K, V inside the block, so those are recomputed too.  KV
+caches are ``{"self": (K, V)}`` with K, V of shape (L, B, S, KV, hd),
+updated in place; an int8 cache (``cfg.kv_quant``) holds ``{"q", "s"}``
+dicts in place of K and V.
 
 VLM (llama-3.2-vision style): the stack is ``U`` units of ``P - 1`` self
 layers and one cross-attention layer over image embeddings (``P =
@@ -80,6 +82,14 @@ def _unbound_layers(tree):
         it = iter([layers[i] for layers in per_leaf])
         out.append(map_tree(lambda _p, _x: next(it), tree))
     return out
+
+
+def _stack_layers(blocks, train: bool):
+    """Every layer of a stacked tree: by unbind in a training forward
+    (``train``), else as select views."""
+    if train:
+        return _unbound_layers(blocks)
+    return [_layer(blocks, i) for i in range(tree_leaves(blocks)[0].shape[0])]
 
 
 def _maybe_remat(cfg: ModelConfig, fn):
@@ -210,16 +220,12 @@ def _run_dense_stack(cfg, blocks, x, positions, caches=None,
     summed in layer order (0.0 when dense), else None (the serving steps
     discard it)."""
     aux = 0.0
-    n = blocks["ln1"]["scale"].shape[0]
-    if caches is None and _requires_grad(blocks):
-        layers = _unbound_layers(blocks)
-        block = _maybe_remat(cfg, _dense_block)
-    else:
-        layers = [_layer(blocks, i) for i in range(n)]
-        block = _dense_block
-    for i in range(n):
+    train = caches is None and _requires_grad(blocks)
+    layers = _stack_layers(blocks, train)
+    block = _maybe_remat(cfg, _dense_block) if train else _dense_block
+    for i, bp in enumerate(layers):
         cache = None if caches is None else tuple(_layer(c, i) for c in caches)
-        x, _, a = block(cfg, layers[i], x, positions, kv_cache=cache,
+        x, _, a = block(cfg, bp, x, positions, kv_cache=cache,
                         cache_offset=cache_offset, kv_start=kv_start,
                         with_aux=with_aux)
         if with_aux:
@@ -237,6 +243,14 @@ def _cross_block(cfg: ModelConfig, bp, x, cross_kv_pair):
     return x + y
 
 
+def _cross_block_of(cfg: ModelConfig, bp, x, src):
+    """:func:`_cross_block` projecting its K, V from ``src`` itself: in a
+    training forward they are recomputed with the block, not kept a layer
+    from the forward to the backward."""
+    return _cross_block(cfg, bp, x, L.cross_kv(bp["cross"], src,
+                                               attn_dims(cfg)))
+
+
 def _vlm_cross_cache(cfg: ModelConfig, params, image_embeds):
     """Every unit's cross K, V of the image embeddings: each (U, B, N_img,
     KV, hd)."""
@@ -248,41 +262,57 @@ def _vlm_cross_cache(cfg: ModelConfig, params, image_embeds):
 
 
 def _run_vlm_stack(cfg, params, x, positions, cross_cache, caches=None,
-                   cache_offset=None, kv_start=None, with_aux=False):
+                   cache_offset=None, kv_start=None, with_aux=False,
+                   train=False):
     """Loop over the units: the unit's P - 1 self layers (cache leaves
     [u]), then its cross layer.  Returns (x, caches_or_None, aux) as
-    :func:`_run_dense_stack`."""
-    ks, vs = cross_cache
+    :func:`_run_dense_stack`.  ``train``: ``cross_cache`` is the image
+    source (see :func:`_cross_cache`), the units come by unbind and each
+    cross layer is recomputed in the backward with its K, V."""
+    units = params["units"]
+    selfs = _stack_layers(units["selfs"], train)
+    crosses = _stack_layers(units["cross"], train)
+    if train:
+        cross = _maybe_remat(cfg, _cross_block_of)
+    else:
+        ks, vs = cross_cache
     aux = 0.0
     for u in range(_units(cfg)[0]):
         cache = None if caches is None else tuple(_layer(c, u) for c in caches)
-        x, _, a = _run_dense_stack(cfg, _layer(params["units"]["selfs"], u),
-                                   x, positions, cache, cache_offset,
-                                   kv_start, with_aux)
+        x, _, a = _run_dense_stack(cfg, selfs[u], x, positions, cache,
+                                   cache_offset, kv_start, with_aux)
         if with_aux:
             aux = aux + a
-        x = _cross_block(cfg, _layer(params["units"]["cross"], u), x,
-                         (ks[u], vs[u]))
+        if train:
+            x = cross(cfg, crosses[u], x, cross_cache)
+        else:
+            x = _cross_block(cfg, crosses[u], x, (ks[u], vs[u]))
     return x, caches, (aux if with_aux else None)
+
+
+def _encoder_block(cfg: ModelConfig, bp, x):
+    h, _ = L.attention(
+        bp["attn"], L.apply_norm(bp["ln1"], x, eps=cfg.norm_eps),
+        attn_dims(cfg), causal=False,
+        p_dtype=getattr(torch, cfg.attn_p_dtype),
+        attn_impl=cfg.attention_impl)
+    x = x + h
+    return x + L.mlp_gelu(bp["mlp"],
+                          L.apply_norm(bp["ln2"], x, eps=cfg.norm_eps))
 
 
 def _run_encoder(cfg: ModelConfig, params, encoder_embeds):
     """Whisper's encoder over ``encoder_embeds`` (B, enc_len, D), the
     conv frontend's stub output: non-causal self-attention (the chunked
     path, as in the reference) and the GELU MLP a layer, then the final
-    norm."""
+    norm.  A training forward takes the layers by unbind and recomputes
+    each in the backward (``cfg.remat``), as the reference's."""
     x = encoder_embeds.to(getattr(torch, cfg.dtype))
     blocks = params["enc_blocks"]
-    for i in range(blocks["ln1"]["scale"].shape[0]):
-        bp = _layer(blocks, i)
-        h, _ = L.attention(
-            bp["attn"], L.apply_norm(bp["ln1"], x, eps=cfg.norm_eps),
-            attn_dims(cfg), causal=False,
-            p_dtype=getattr(torch, cfg.attn_p_dtype),
-            attn_impl=cfg.attention_impl)
-        x = x + h
-        x = x + L.mlp_gelu(bp["mlp"],
-                           L.apply_norm(bp["ln2"], x, eps=cfg.norm_eps))
+    train = _requires_grad(blocks)
+    block = _maybe_remat(cfg, _encoder_block) if train else _encoder_block
+    for bp in _stack_layers(blocks, train):
+        x = block(cfg, bp, x)
     return L.apply_norm(params["enc_ln_f"], x, eps=cfg.norm_eps)
 
 
@@ -295,52 +325,82 @@ def _whisper_cross_cache(cfg: ModelConfig, params, enc):
     return tuple(torch.stack(t) for t in zip(*per_layer))
 
 
+def _whisper_dec_block(cfg: ModelConfig, bp, x, positions, cross_kv_pair,
+                       kv_cache=None, cache_offset=None, kv_start=None):
+    p_dtype = getattr(torch, cfg.attn_p_dtype)
+    h, _ = L.attention(
+        bp["attn"], L.apply_norm(bp["ln1"], x, eps=cfg.norm_eps),
+        attn_dims(cfg), positions=positions, kv_cache=kv_cache,
+        cache_offset=cache_offset, p_dtype=p_dtype,
+        attn_impl=cfg.attention_impl, kv_start=kv_start)
+    x = x + h
+    h, _ = L.attention(
+        bp["cross"], L.apply_norm(bp["ln_x"], x, eps=cfg.norm_eps),
+        attn_dims(cfg), kv_override=cross_kv_pair, p_dtype=p_dtype)
+    x = x + h
+    return x + L.mlp_gelu(bp["mlp"],
+                          L.apply_norm(bp["ln2"], x, eps=cfg.norm_eps))
+
+
+def _whisper_dec_block_of(cfg: ModelConfig, bp, x, positions, enc):
+    """:func:`_whisper_dec_block` projecting its cross K, V from the
+    encoder output itself (a training forward: see
+    :func:`_cross_block_of`)."""
+    return _whisper_dec_block(cfg, bp, x, positions,
+                              L.cross_kv(bp["cross"], enc, attn_dims(cfg)))
+
+
 def _run_whisper_decoder(cfg, params, x, positions, cross_cache, caches=None,
-                         cache_offset=None, kv_start=None, with_aux=False):
+                         cache_offset=None, kv_start=None, with_aux=False,
+                         train=False):
     """Loop over the decoder layers: causal self-attention (cache leaves
     [i]), cross-attention over layer i's encoder K, V, the GELU MLP.
     Returns (x, caches_or_None, aux) as :func:`_run_dense_stack` (aux 0.0:
-    no MoE layer)."""
+    no MoE layer).  ``train``: ``cross_cache`` is the encoder output, the
+    layers come by unbind and each is recomputed in the backward with its
+    cross K, V."""
+    layers = _stack_layers(params["dec_blocks"], train)
+    if train:
+        block = _maybe_remat(cfg, _whisper_dec_block_of)
+        for bp in layers:
+            x = block(cfg, bp, x, positions, cross_cache)
+        return x, caches, (0.0 if with_aux else None)
     ks, vs = cross_cache
-    blocks = params["dec_blocks"]
-    p_dtype = getattr(torch, cfg.attn_p_dtype)
-    for i in range(blocks["ln1"]["scale"].shape[0]):
-        bp = _layer(blocks, i)
+    for i, bp in enumerate(layers):
         cache = None if caches is None else tuple(_layer(c, i) for c in caches)
-        h, _ = L.attention(
-            bp["attn"], L.apply_norm(bp["ln1"], x, eps=cfg.norm_eps),
-            attn_dims(cfg), positions=positions, kv_cache=cache,
-            cache_offset=cache_offset, p_dtype=p_dtype,
-            attn_impl=cfg.attention_impl, kv_start=kv_start)
-        x = x + h
-        h, _ = L.attention(
-            bp["cross"], L.apply_norm(bp["ln_x"], x, eps=cfg.norm_eps),
-            attn_dims(cfg), kv_override=(ks[i], vs[i]), p_dtype=p_dtype)
-        x = x + h
-        x = x + L.mlp_gelu(bp["mlp"],
-                           L.apply_norm(bp["ln2"], x, eps=cfg.norm_eps))
+        x = _whisper_dec_block(cfg, bp, x, positions, (ks[i], vs[i]),
+                               kv_cache=cache, cache_offset=cache_offset,
+                               kv_start=kv_start)
     return x, caches, (0.0 if with_aux else None)
 
 
-def _cross_cache(cfg: ModelConfig, params, batch):
+def _cross_cache(cfg: ModelConfig, params, batch, train: bool = False):
     """The cross K, V of the batch's extra inputs (vlm: the image
     embeddings; audio: the encoder's output over the frame embeddings), or
-    None for the families without cross-attention."""
+    None for the families without cross-attention.  ``train``: the source
+    the cross layers project themselves (the image embeddings in the
+    model's dtype; the encoder's output)."""
     if cfg.family == "vlm":
+        if train:
+            return batch["image_embeds"].to(getattr(torch, cfg.dtype))
         return _vlm_cross_cache(cfg, params, batch["image_embeds"])
     if cfg.family == "audio":
-        return _whisper_cross_cache(
-            cfg, params, _run_encoder(cfg, params, batch["encoder_embeds"]))
+        enc = _run_encoder(cfg, params, batch["encoder_embeds"])
+        return enc if train else _whisper_cross_cache(cfg, params, enc)
     return None
 
 
-def _run_stack(cfg, params, x, positions, cross_cache=None, **kw):
-    """The family's stack: (x, caches_or_None, aux)."""
+def _run_stack(cfg, params, x, positions, cross_cache=None, train=False,
+               **kw):
+    """The family's stack: (x, caches_or_None, aux).  ``train``: a
+    training forward, whose ``cross_cache`` is :func:`_cross_cache`'s
+    source (the dense stack tells by itself)."""
     if cfg.family == "vlm":
-        return _run_vlm_stack(cfg, params, x, positions, cross_cache, **kw)
+        return _run_vlm_stack(cfg, params, x, positions, cross_cache,
+                              train=train, **kw)
     if cfg.family == "audio":
         return _run_whisper_decoder(cfg, params, x, positions, cross_cache,
-                                    **kw)
+                                    train=train, **kw)
     return _run_dense_stack(cfg, params["blocks"], x, positions, **kw)
 
 
@@ -365,13 +425,17 @@ def _positions(batch: int, seq: int, device, offset: int = 0):
                                  device=device).expand(batch, seq)
 
 
-def _add_pos_emb(cfg: ModelConfig, params, x, positions):
+def _add_pos_emb(cfg: ModelConfig, params, x, positions=None):
     """Audio: ``x`` plus the learned positions ``positions`` (B, S), each
     row's own for ragged rows.  Indices past the table clamp to its last
-    row, as the reference's gather and ``dynamic_slice`` do."""
+    row, as the reference's gather and ``dynamic_slice`` do.  None: 0 .. S
+    - 1, the table's first S rows as a slice (the reference's training
+    forward; its backward is a slice too, not an index accumulate)."""
     if cfg.family != "audio":
         return x
     table = params["pos_emb"]
+    if positions is None:
+        return x + table[:x.shape[1]][None].to(x.dtype)
     idx = positions.long().clamp(0, table.shape[0] - 1)
     return x + table[idx].to(x.dtype)
 
@@ -390,9 +454,11 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     tokens = batch["tokens"]
     b, s = tokens.shape
     pos = _positions(b, s, tokens.device)
-    x = _add_pos_emb(cfg, params, _embed(cfg, params, tokens), pos)
+    x = _add_pos_emb(cfg, params, _embed(cfg, params, tokens))
+    train = _requires_grad(params)
     x, _, aux = _run_stack(cfg, params, x, pos,
-                           _cross_cache(cfg, params, batch), with_aux=True)
+                           _cross_cache(cfg, params, batch, train),
+                           with_aux=True, train=train)
     return x, aux
 
 

@@ -13,7 +13,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.models.params import map_tree, map_trees
+from repro_torch.models.params import in_layout_of, map_tree, map_trees
 
 
 class CompressionState(NamedTuple):
@@ -22,15 +22,15 @@ class CompressionState(NamedTuple):
 
 def init_state(params) -> CompressionState:
     return CompressionState(residual=map_tree(
-        lambda _p, p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), params))
+        lambda _p, p: torch.zeros_like(p, dtype=torch.float32), params))
 
 
 def abstract_state(abstract_params) -> CompressionState:
-    """Shapes and dtypes only (``meta`` tensors): a restore template."""
+    """Shapes, strides and dtypes only (``meta`` tensors): a restore
+    template."""
     return CompressionState(residual=map_tree(
-        lambda _p, p: torch.empty(p.shape, dtype=torch.float32,
-                                  device="meta"), abstract_params))
+        lambda _p, p: torch.empty_like(p, dtype=torch.float32,
+                                       device="meta"), abstract_params))
 
 
 def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -45,7 +45,7 @@ def compress_grads(grads, state: CompressionState):
         gf = g.float() + r
         q, scale = _quantize(gf)
         deq = q.float() * scale
-        return deq, gf - deq
+        return deq, in_layout_of(r, gf - deq)   # the residual's layout
 
     deq, res = map_trees(leaf, grads, state.residual)
     return deq, CompressionState(residual=res)

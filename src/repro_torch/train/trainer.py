@@ -5,9 +5,9 @@
 with error feedback, AdamW with f32 masters.  It is functional over
 ``TrainState`` as the reference's is: the state passed in is left as it
 was.  ``Trainer`` drives it over the data pipeline with checkpoints, a
-straggler deadline, and one host transfer for the logged losses.
-
-The train step covers the dense and moe families; the others raise.
+straggler deadline, and one host transfer for the logged losses.  Every
+family trains; a vlm or audio batch carries its extra inputs
+(``image_embeds`` / ``encoder_embeds``) beside the tokens and labels.
 """
 from __future__ import annotations
 
@@ -23,9 +23,6 @@ from repro_torch.models.params import map_tree, map_trees, tree_leaves
 from repro_torch.optim import compression as comp
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.train.loss import lm_loss
-
-#: families whose train step is held against the reference's
-TRAIN_FAMILIES = ("dense", "moe")
 
 
 class TrainState(NamedTuple):
@@ -48,11 +45,16 @@ def init_train_state(model: Model, optimizer: AdamW, seed: int = 0,
 
 def abstract_train_state(model: Model, optimizer: AdamW,
                          use_compression: bool = False) -> TrainState:
-    """Shapes and dtypes of a train state (``meta`` tensors): the template
-    ``Checkpointer.restore`` fills."""
-    ap = map_tree(lambda _p, spec: torch.empty(
-        spec.shape, dtype=getattr(torch, spec.dtype or model.cfg.dtype),
-        device="meta"), model.template)
+    """Shapes, strides and dtypes of a train state (``meta`` tensors): the
+    template ``Checkpointer.restore`` fills.  A ``kmajor`` leaf is laid
+    out K-major here too, in the params and in every tree shaped like
+    them."""
+    def leaf(_p, spec):
+        t = torch.empty(spec.shape[::-1] if spec.kmajor else spec.shape,
+                        dtype=getattr(torch, spec.dtype or model.cfg.dtype),
+                        device="meta")
+        return t.t() if spec.kmajor else t
+    ap = map_tree(leaf, model.template)
     return TrainState(
         step=torch.empty((), dtype=torch.int32, device="meta"),
         params=ap, opt=optimizer.abstract_state(ap),
@@ -77,10 +79,6 @@ def make_train_step(model: Model, optimizer: AdamW, *,
     ``microbatches`` > 1 splits the batch along dim 0 and sums the
     microbatches' gradients in f32 (each divided by their number); the
     metrics are then the loss and the optimizer's, as the reference's."""
-    if model.cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"training the {model.cfg.family} family is not ported "
-            f"(covered: {', '.join(TRAIN_FAMILIES)})")
 
     def compute_grads(params, batch):
         if microbatches == 1:
@@ -95,8 +93,8 @@ def make_train_step(model: Model, optimizer: AdamW, *,
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             l, _, grads = _value_and_grad(model, params, mb)
             if acc is None:
-                acc = map_tree(lambda _p, p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params)
+                acc = map_tree(lambda _p, p: torch.zeros_like(
+                    p, dtype=torch.float32), params)
                 loss = torch.zeros((), dtype=torch.float32, device=l.device)
             acc, = map_trees(lambda a, g: (a + g.float() / microbatches,),
                              acc, grads)

@@ -894,3 +894,135 @@ def test_cuda_train_step_matches_the_cpu(cuda):
 def _leaves(tree):
     from repro_torch.models.params import tree_leaves
     return tree_leaves(tree)
+
+
+def _train_batch(model, dev, batch=4, seq=32):
+    """Step 0 of the synthetic pipeline on ``dev``, with the model's extra
+    inputs (seeded, drawn on the CPU) beside the tokens."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    out = TokenPipeline(DataConfig(vocab_size=model.cfg.vocab_size,
+                                   seq_len=seq, global_batch=batch),
+                        device=dev)(0)
+    gen = torch.Generator().manual_seed(0)
+    for k, spec in model.extra_inputs(batch).items():
+        out[k] = (0.02 * torch.randn(spec.shape, generator=gen)).to(
+            device=dev, dtype=spec.dtype)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-large-v3",
+                                  "mamba2-130m", "zamba2-2.7b"])
+def test_cuda_train_step_of_every_family_matches_the_cpu(cuda, arch):
+    """One float32 train step of each family's reduced model with remat on
+    the card (every product on the fma kernel) against the CPU: metrics
+    within 1e-4, every gradient leaf within 1e-4 of its max (a key bias,
+    whose gradient is 0 in exact arithmetic, at roundoff on both), parameters
+    within 1e-4 where the gradient is at least 1e-3 of its leaf's max and
+    within 2 lr everywhere (AdamW's first update is lr * g / (|g| + eps),
+    which a last-bit difference of a near-zero gradient moves anywhere
+    within lr)."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_paths
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.trainer import _value_and_grad
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    model = build_model(cfg)
+    opt = AdamW(learning_rate=1e-3)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(model, opt, 0, device="cpu")
+        state = state._replace(step=state.step.to(dev),
+                               params=_to(state.params, dev),
+                               opt=type(state.opt)(*(_to(x, dev)
+                                                     for x in state.opt)))
+        batch = _train_batch(model, dev)
+        kernels.reset_launch_counts()
+        _, _, grads = _value_and_grad(model, state.params, batch)
+        new, metrics = make_train_step(model, opt)(state, batch)
+        results[dev] = (tree_paths(new.params), metrics, tree_paths(grads),
+                        kernels.gemm_launches_by_path())
+    paths = results["cuda"][3]
+    assert paths["fma"] > 0 and sum(paths.values()) == paths["fma"], paths
+    for k, v in results["cpu"][1].items():
+        assert abs(float(results["cuda"][1][k]) - float(v)) <= 1e-4 * max(
+            abs(float(v)), 1.0), k
+    top = max(g.abs().max().item() for g in results["cpu"][2].values())
+    for p, g in results["cpu"][2].items():
+        scale = g.abs().max().item()
+        got = results["cuda"][2][p].cpu()
+        if p.endswith("/bk"):
+            # 0 in exact arithmetic (a row's softmax cancels q . bk): both
+            # devices give roundoff, far below the other leaves
+            assert max(scale, got.abs().max().item()) <= 1e-6 * top, p
+        else:
+            err = (got - g).abs().max().item()
+            assert err <= 1e-4 * max(scale, 1e-30), (p, err, scale)
+        big = g.abs() >= 1e-3 * scale
+        want, got = results["cpu"][0][p], results["cuda"][0][p].cpu()
+        torch.testing.assert_close(got[big], want[big], atol=1e-4, rtol=1e-4)
+        assert (got - want).abs().max().item() <= 2e-3, p
+
+
+def test_cuda_kmajor_head_stays_on_wgmma_after_updates_and_a_restore(
+        cuda, tmp_path):
+    """Reduced whisper at vocab 250 in bf16: after two updates and after a
+    checkpoint's restore, ``lm_head`` is still K-major and the unembed
+    (M = 4 x 32 rows) launches the wgmma kernel, not wmma."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.core import matmul
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import (abstract_train_state, init_train_state,
+                                   make_train_step)
+    cfg = dataclasses.replace(get_config("whisper-large-v3").reduced(),
+                              vocab_size=250, dtype="bfloat16")
+    model = build_model(cfg)
+    opt = AdamW(learning_rate=1e-3)
+    state = init_train_state(model, opt, 0, device="cuda")
+    step = make_train_step(model, opt)
+    batch = _train_batch(model, "cuda")
+    for _ in range(2):
+        state, _ = step(state, batch)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(2, state)
+    back = ck.restore(2, abstract_train_state(model, opt), device="cuda")
+    x = torch.randn(4 * 32, cfg.d_model, device="cuda").bfloat16()
+    for s in (state, back):
+        for t in (s.params["lm_head"], s.opt.m["lm_head"],
+                  s.opt.master["lm_head"]):
+            assert t.stride() == (1, cfg.d_model), t.stride()
+        kernels.reset_launch_counts()
+        matmul(x, s.params["lm_head"], out_dtype=torch.float32)
+        paths = kernels.gemm_launches_by_path()
+        assert paths["wgmma"] == 1 and paths["wmma"] == 0, paths
+
+
+def test_cuda_bf16_dw_of_a_ragged_m_stays_on_wgmma(cuda):
+    """A bf16 product at M = 4 x 1601 rows (vlm's cross K/V over image
+    tokens) under autograd: forward, dX and dW (its M padded to a multiple
+    of 8 with zero rows) all on the wgmma kernel, dW within a bf16 ulp of
+    autograd through the plain version."""
+    from repro_torch import kernels
+    from repro_torch.core import matmul
+    a, b = _operands(cuda, 5, 4 * 1601, 256, 128)
+    x, w = a.clone().requires_grad_(), b.detach().requires_grad_()
+    ct = torch.randn(4 * 1601, 128, device=cuda)
+    kernels.reset_launch_counts()
+    (matmul(x, w).float() * ct).sum().backward()
+    paths = kernels.gemm_launches_by_path()
+    wr = b.detach().requires_grad_()
+    (ref.gemm_ref(a, wr).float() * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert {p: c for p, c in paths.items() if c} == {"wgmma": 3}, paths
+    scale = wr.grad.float().abs().max().item()
+    assert (w.grad.float() - wr.grad.float()).abs().max().item() <= \
+        2e-2 * scale
