@@ -51,7 +51,13 @@ Phases, each printing one JSON line:
    batched ragged prefill against per-prompt prefill, and a float32 pass
    (full width, 2 layers, flash through the fma kernel) whose engine
    tokens must equal the per-prompt oracle's exactly.  The prefix cache is
-   on (the default); these prompts share no prefix and hit nothing.
+   on (the default); these prompts share no prefix and hit nothing.  One
+   more warm serve of the 12 requests (the prefix cache cleared) runs
+   under ``repro_torch.profiling.trace``: its PROFILE blob must pass
+   ``validate_profile`` on the device timeline, with one
+   ``serve.decode_chunk`` marker and one device-to-host copy a chunk, one
+   ``serve.prefill_admit`` an admission prefill, K1's kernels in the
+   ``gemm`` family and K2's in ``attention``.
 6. ``serve_features`` — the same model and weights through the paths the
    serving slice after the first added, each pass with the launch counts
    set to 0 just before and read just after, each requiring every GEMM on
@@ -138,7 +144,17 @@ Phases, each printing one JSON line:
    ``TRAIN_F32_TOL``); one timed step (CUDA events): K1's device time by
    role (forward, remat recompute, dX, dW, the unembed's two f32 backward
    products; the f32 casts and x.T copies beside them), the step's GEMM
-   shapes and each one's registry provenance.
+   shapes and each one's registry provenance.  The 6 steps run again
+   from the same seed and data under ``remat_policy="dots"`` (K1's
+   forward outputs saved, everything else recomputed): losses equal to
+   the first run's bit for bit, wgmma at 21 a layer + 1 a step (no remat
+   recompute), fma at 2 a step, none of K1's launches in a ``k1_split``
+   step a ``forward_recompute``; its walls and peak memory beside the
+   first run's.  Then one more warm step under
+   ``repro_torch.profiling.trace``, emitted as a ``train_profile`` line
+   (device time by family, by launching op and by kernel, K1's share):
+   the blob must pass ``validate_profile``, with one ``train.step``
+   marker and K1's kernels in the ``gemm`` family.
 14-17. ``train_audio``, ``train_ssm``, ``train_hybrid``, ``train_vlm`` —
    the same for the other families (``TRAIN_PHASES``), with seeded extra
    inputs beside the tokens: whisper-large-v3 at full width and depth
@@ -148,7 +164,8 @@ Phases, each printing one JSON line:
    steps), zamba2-2.7b at full width and 2 of 9 units (8 x 512, 3 steps)
    and llama-3.2-vision-11b at full width and 1 of 8 units (4 x 512
    tokens, 4 x 1601 image embeddings, 3 steps); their f32 steps at 2 + 2
-   layers, 2 layers, 1 unit, and 1 self + the cross layer.
+   layers, 2 layers, 1 unit, and 1 self + the cross layer; each with its
+   traced step and ``train_profile`` line (no ``"dots"`` run).
 
 The kernels phase also holds whisper's shapes (d 1280 projections with
 biases and the GELU MLP at M = 8, 8 x 256 and the encoder's 8 x 1500, the
@@ -206,6 +223,76 @@ def smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
         f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+# ---------------------------------------------------------------------------
+# profiling
+# ---------------------------------------------------------------------------
+
+#: the port's kernels by their device names: K1's four paths, K2's two
+K1_NAMES = ("gemm_wgmma_kernel", "gemm_decode_kernel", "gemm_bf16_kernel",
+            "gemm_f32_kernel")
+K2_NAMES = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")
+
+
+def traced(label: str, run):
+    """``run()`` under ``repro_torch.profiling.trace`` into
+    ``build/traces/<label>``: (its result, the capture's Chrome-trace
+    events, the seconds the traced run took and those its capture took to
+    stop, write and read back).  The capture is removed once read."""
+    import shutil
+
+    from repro_torch.profiling import trace
+    out_dir = os.path.join(HERE, "build", "traces", label)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        with trace(out_dir) as session:
+            result = run()
+            t1 = time.perf_counter()
+        events = session.events()
+        return result, events, {"traced_run_s": t1 - t0,
+                                "capture_read_s": time.perf_counter() - t1}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def profile_summary(kind: str, events, top: int = 12):
+    """(PROFILE blob, summary) of a capture on the card: the blob must pass
+    ``validate_profile`` on the device timeline; the summary has its
+    families, annotations and host syncs, device time by launching op
+    (top ``top``), the top kernels, and K1's and K2's device time, share
+    and the families their kernels fall in."""
+    from repro_torch.profiling import (build_profile, classify_event_name,
+                                       validate_profile)
+    from repro_torch.profiling.breakdown import DEVICE_CATEGORIES, base_op
+    blob = validate_profile(build_profile(kind, events=events,
+                                          hardware="h100"))
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in DEVICE_CATEGORIES]
+    total_us = sum(float(e["dur"]) for e in device)
+    out = {"timeline": blob["timeline"], "device_events": len(device),
+           "device_ms": total_us / 1e3,
+           "wall_ms": blob["totals"]["wall_us"] / 1e3,
+           "families": {f: {"ms": v["us"] / 1e3, "count": v["count"],
+                            "fraction": v["fraction"]}
+                        for f, v in blob["families"].items()},
+           "annotations": blob["annotations"],
+           "host_syncs": blob["host_syncs"],
+           "device_ms_by_launching_op": {
+               k: v / 1e3 for k, v in list(
+                   blob["device_us_by_launching_op"].items())[:top]},
+           "top_kernels": [{"name": o["name"], "ms": o["us"] / 1e3,
+                            "count": o["count"]}
+                           for o in blob["top_ops"][:top]]}
+    for key, names in (("k1", K1_NAMES), ("k2", K2_NAMES)):
+        mine = [e for e in device if base_op(e["name"]) in names]
+        us = sum(float(e["dur"]) for e in mine)
+        out[key] = {"device_ms": us / 1e3, "launches": len(mine),
+                    "share": us / total_us if total_us else 0.0,
+                    "families": sorted({classify_event_name(e["name"])
+                                        for e in mine})}
+    return blob, out
 
 
 # ---------------------------------------------------------------------------
@@ -926,6 +1013,31 @@ def phase_serve(torch):
         "registry_hit_stats": st["registry_hit_stats"],
         "page_size_source": st["page_size_source"],
     }
+
+    # one warm serve of the same requests under profiling.trace (the
+    # prefix cache cleared: the same prompts would hit it): one
+    # serve.decode_chunk marker and one device-to-host copy a chunk
+    eng.clear_prefix_cache()
+    before = eng.stats()
+    outs_traced, events, secs = traced(
+        "serve", lambda: eng.generate(prompts, max_new))
+    st2 = eng.stats()
+    _, prof = profile_summary("serving", events)
+    del events
+    prof.update(secs)
+    prof.update({k: st2[k] - before[k] for k in (
+        "chunks", "device_transfers", "admission_prefills")},
+        tokens_equal_first_serve=outs_traced == outs)
+    serve["serve_profile"] = prof
+    ann = prof["annotations"]
+    assert ann.get("serve.decode_chunk", {}).get("count") == prof[
+        "chunks"] == prof["device_transfers"], prof
+    assert prof["host_syncs"] == prof["chunks"], prof
+    assert ann.get("serve.prefill_admit", {}).get("count") == prof[
+        "admission_prefills"], prof
+    assert prof["k1"]["families"] == ["gemm"] and prof["k1"]["launches"], prof
+    assert prof["k2"]["families"] == ["attention"] and prof["k2"][
+        "launches"], prof
 
     # batched ragged prefill (the engine's layout) vs per-prompt prefill
     first = prompts[:8]
@@ -1743,10 +1855,13 @@ def phase_serve_hybrid(torch, ctx):
 #: cross layer 7, whose K/V projections of the image embeddings need no dX
 #: (26).
 TRAIN_PHASES = {
+    # also under remat_policy="dots": K1's 7 forward outputs a layer kept,
+    # so the backward launches 21 a layer (dX, dW, the 7 forward before it)
     "train": dict(
         arch="llama3.2-1b", cut={}, batch=(8, 512), steps=6, save_at=3,
         f32_cut=dict(num_layers=2),
-        wgmma=lambda c: 28 * c.num_layers + 1),
+        wgmma=lambda c: 28 * c.num_layers + 1,
+        dots_wgmma=lambda c: 21 * c.num_layers + 1),
     "train_audio": dict(
         arch="whisper-large-v3", cut={}, batch=(8, 512), steps=4, save_at=2,
         f32_cut=dict(num_layers=2, encoder_layers=2),
@@ -1899,6 +2014,44 @@ def k1_split(torch, run):
     return split, {k: v for k, v in counts.items() if not k.startswith("range")}
 
 
+def dots_run(torch, cfg, opt, pipe, tcfg, tokens: int, full_history):
+    """``cfg``'s steps again from the same seed and data under
+    ``remat_policy="dots"`` (K1's forward outputs saved, the rest
+    recomputed): its losses and whether they equal ``full_history``'s
+    bit for bit, step walls, peak memory and K1's launches by path from 0;
+    then K1 by role in one more step (``k1_split``, whose
+    ``forward_recompute`` must stay 0)."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer, init_train_state, make_train_step
+
+    model = build_model(dataclasses.replace(cfg, remat_policy="dots"))
+    held = [init_train_state(model, opt, 0, device="cuda")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    trainer = Trainer(model, opt, pipe, tcfg)
+    state, history = run_from(trainer, held)
+    torch.cuda.synchronize()
+    walls = trainer.step_walls
+    out = {"remat_policy": "dots", "losses": [l for _, l in history],
+           "losses_bit_equal_full": history == full_history,
+           "step_walls": walls,
+           "tok_per_s_warm": tokens * (len(walls) - 1) / sum(walls[1:]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "gemm_launches_by_path": kernels.gemm_launches_by_path(),
+           "flash_launches_by_path": kernels.flash_launches_by_path()}
+    step = make_train_step(model, opt)
+    batch = pipe(1)
+    split, counts = k1_split(torch, lambda: step(state, batch))
+    out.update(k1_device_ms_by_role=split, k1_launches_by_role=counts)
+    del state, held, trainer
+    free_card(torch)
+    return out
+
+
 def train_extras(torch, cfg, n: int, step: int, dtype):
     """A train batch's extra inputs at ``step``: seeded image embeddings
     (vlm) or frame embeddings (audio), n rows; none for the other
@@ -1947,6 +2100,7 @@ def phase_train(torch, ctx, phase: str = "train"):
     from repro_torch.models import build_model
     from repro_torch.models.params import map_tree, tree_paths
     from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.profiling import annotate
     from repro_torch.train import (Trainer, TrainerConfig,
                                    abstract_train_state, init_train_state,
                                    make_train_step)
@@ -2081,6 +2235,10 @@ def phase_train(torch, ctx, phase: str = "train"):
                 free_card(torch)
                 shutil.rmtree(ckdir, ignore_errors=True)
             del final
+            # -- the same steps under remat_policy="dots" ------------------
+            if "dots_wgmma" in spec:
+                out["dots"] = dots_run(torch, cfg, opt, pipe, tcfg(
+                    steps, 10 ** 9), tokens, history)
             # -- one bf16 step: K1 against the plain versions --------------
             step = make_train_step(model, opt)
             batch = pipe(0)
@@ -2127,6 +2285,18 @@ def phase_train(torch, ctx, phase: str = "train"):
                                                     "schedule": sched}
                 for (op, dt, shp), (src, sched) in sorted(lookups.items())
                 if op == "gemm"}
+            # -- one more warm step under profiling.trace ------------------
+            def traced_step():
+                with annotate("train.step"):
+                    step(state, batch2)
+            _, events, secs = traced(phase, traced_step)
+            _, prof = profile_summary("training", events)
+            del events
+            prof.update(secs)
+            emit(dict({"phase": "train_profile", "train_phase": phase,
+                       "card": out["card"], "model": cfg.name,
+                       "batch": [b, s], "steps_traced": 1}, **prof))
+            out["profile_k1_share"] = prof["k1"]["share"]
             del state, batch, batch2
             free_card(torch)
             # -- one f32 step at f32_cut against the plain versions --------
@@ -2236,6 +2406,19 @@ def phase_train(torch, ctx, phase: str = "train"):
         got, want = hold["kernel"][0][k], hold["plain"][0][k]
         assert math.isfinite(got) and abs(got - want) <= tol * abs(want), \
             (k, got, want, tol)
+    assert prof["annotations"].get("train.step", {}).get("count") == 1, prof
+    assert prof["k1"]["families"] == ["gemm"] and prof["k1"]["launches"], prof
+    assert prof["k2"]["launches"] == 0, prof
+    if "dots_wgmma" in spec:
+        dots = out["dots"]
+        assert dots["losses_bit_equal_full"], (dots["losses"], out["losses"])
+        paths = dots["gemm_launches_by_path"]
+        assert paths["wgmma"] == spec["dots_wgmma"](cfg) * steps, (paths,
+                                                                    spec)
+        assert paths["fma"] == 2 * steps, paths
+        assert paths["decode"] == paths["wmma"] == 0, paths
+        assert dots["k1_launches_by_role"].get("forward_recompute", 0) == 0, \
+            dots["k1_launches_by_role"]
     f32 = out["f32_step_vs_plain"]
     assert sum(f32["plain_gemm_launches_by_path"].values()) == 0, f32
     assert f32["kernel_gemm_launches_by_path"]["fma"] > 0, f32

@@ -24,6 +24,8 @@ from typing import Optional
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.hardware import detect_hardware, launch_hardware
 from repro_torch.core.registry import GLOBAL_REGISTRY
@@ -113,74 +115,105 @@ def _product(a: torch.Tensor, b: torch.Tensor, *, hardware: Optional[str],
                     out_dtype=out_dtype)
 
 
-class _Matmul(torch.autograd.Function):
+@torch.library.custom_op("repro_torch::gemm", mutates_args=())
+def gemm_op(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
+            out_dtype: torch.dtype, hardware: Optional[str],
+            grad_dtype: torch.dtype) -> torch.Tensor:
+    """K1's 2-D product ``a @ b + bias`` in ``out_dtype`` as an operator
+    autograd and selective checkpointing can name (``"dots"`` saves its
+    output, :func:`dots_policy`).  ``grad_dtype`` is the dtype its backward
+    products run in.  The product goes through ``ops.gemm``, looked up at
+    call time, and is recorded in the ambient ``capture``."""
+    return _product(a, b, hardware=hardware, capture=_ctx().capture,
+                    bias=bias, out_dtype=out_dtype)
+
+
+@gemm_op.register_fake
+def _gemm_op_fake(a, b, bias, out_dtype, hardware, grad_dtype):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype)
+
+
+def _gemm_op_setup(ctx, inputs, output):
+    a, b, bias, _out_dtype, hardware, grad_dtype = inputs
+    ctx.save_for_backward(a, b)
+    # the backward may run on autograd's device thread: the ambient
+    # capture list is read here, on the caller's
+    ctx.meta = (hardware, _ctx().capture, grad_dtype,
+                 None if bias is None else bias.dtype)
+
+
+def _gemm_op_backward(ctx, dz):
+    """dX = dZ @ w.T reads ``w`` K-major, no copy; dW = x.T @ dZ copies
+    x.T, since the kernel reads its left operand with unit stride over K.
+    A bf16 dW whose M (its K) is not a multiple of 8 (vlm's cross K/V over
+    4 x 1601 image tokens) pads x.T and dZ with zero rows to one: the bf16
+    kernels read rows in 16-byte chunks, so the product stays on them
+    instead of WMMA, and the zeros add nothing to it."""
+    x2, w = ctx.saved_tensors
+    hardware, capture, pdt, bias_dtype = ctx.meta
+    prod = functools.partial(_product, hardware=hardware, capture=capture)
+    dz_p = dz.to(pdt)
+    dx = dw = db = None
+    if ctx.needs_input_grad[0]:
+        with record_function("matmul.dX"):
+            dx = prod(dz_p, w.to(pdt).t(), out_dtype=x2.dtype)
+    if ctx.needs_input_grad[1]:
+        with record_function("matmul.dW"):
+            xt = x2.to(pdt).t()
+            pad = -x2.shape[0] % 8 if pdt == torch.bfloat16 else 0
+            if pad:
+                xt = torch.nn.functional.pad(xt, (0, pad))
+                dz_p = torch.nn.functional.pad(dz_p, (0, 0, 0, pad))
+            dw = prod(xt.contiguous(), dz_p, out_dtype=w.dtype)
+    if ctx.needs_input_grad[2]:
+        db = dz.float().sum(0).to(bias_dtype)
+    return dx, dw, db, None, None, None
+
+
+gemm_op.register_autograd(_gemm_op_backward, setup_context=_gemm_op_setup)
+
+
+def _differentiable(x2, w, bias, activation, out_dtype, hardware):
     """``matmul`` under autograd: every product, forward and backward,
     through ``ops.gemm`` (the GEMM kernel on the card, ``gemm_ref`` on the
-    CPU).
+    CPU), the forward one as :func:`gemm_op`.
 
-    With an activation the forward keeps the f32 pre-activation ``z = x @
-    w + bias`` and applies the plain epilogue to it, the reference's order
-    (f32 accumulate, bias, activation, cast); the backward takes the
-    activation's derivative at ``z``.  The backward products run in the
-    operands' dtype promoted with the output's: bf16 for a bf16 projection,
-    f32 for the unembed's f32 cotangent (both operands upcast for it).
-    dX = dZ @ w.T reads ``w`` K-major, no copy; dW = x.T @ dZ copies x.T,
-    since the kernel reads its left operand with unit stride over K.  A
-    bf16 dW whose M (its K) is not a multiple of 8 (vlm's cross K/V over 4
-    x 1601 image tokens) pads x.T and dZ with zero rows to one: the bf16
-    kernels read rows in 16-byte chunks, so the product stays on them
-    instead of WMMA, and the zeros add nothing to it.
-    Each product runs inside a profiler range, ``matmul.forward``,
-    ``matmul.dX`` or ``matmul.dW``, so a trace splits the GEMM's time by
-    role (the dW range also holds the x.T copy).
+    With an activation the op returns the f32 pre-activation ``z = x @ w +
+    bias`` and the plain epilogue is applied to it under autograd, the
+    reference's order (f32 accumulate, bias, activation, cast): ``"dots"``
+    keeps ``z`` and recomputes the activation, as the reference's policy
+    keeps the dot's output and not what follows it.  The backward products
+    run in the operands' dtype promoted with the output's: bf16 for a bf16
+    projection, f32 for the unembed's f32 cotangent (both operands upcast
+    for it).  Each product runs inside a profiler range,
+    ``matmul.forward``, ``matmul.dX`` or ``matmul.dW``, so a trace splits
+    the GEMM's time by role (the dW range also holds the x.T copy).
     """
+    out_dtype = out_dtype or torch.promote_types(x2.dtype, w.dtype)
+    pdt = torch.promote_types(torch.promote_types(x2.dtype, w.dtype),
+                              out_dtype)
+    with record_function("matmul.forward"):
+        if activation is None:
+            return gemm_op(x2, w, bias, out_dtype, hardware, pdt)
+        z = gemm_op(x2, w, bias, torch.float32, hardware, pdt)
+        return apply_epilogue(z, activation=activation).to(out_dtype)
 
-    @staticmethod
-    def forward(fctx, x2, w, bias, activation, out_dtype, hardware, capture):
-        out_dtype = out_dtype or torch.promote_types(x2.dtype, w.dtype)
-        prod = functools.partial(_product, hardware=hardware, capture=capture)
-        z = None
-        with record_function("matmul.forward"):
-            if activation is None:
-                y = prod(x2, w, bias=bias, out_dtype=out_dtype)
-            else:
-                z = prod(x2, w, bias=bias, out_dtype=torch.float32)
-                y = apply_epilogue(z, activation=activation).to(out_dtype)
-        fctx.save_for_backward(x2, w, z)
-        fctx.meta = (activation, out_dtype, hardware, capture,
-                     None if bias is None else bias.dtype)
-        return y
 
-    @staticmethod
-    def backward(fctx, dy):
-        x2, w, z = fctx.saved_tensors
-        activation, out_dtype, hardware, capture, bias_dtype = fctx.meta
-        prod = functools.partial(_product, hardware=hardware, capture=capture)
-        dz = dy
-        if activation is not None:
-            with torch.enable_grad():
-                zz = z.detach().requires_grad_()
-                dz, = torch.autograd.grad(
-                    apply_epilogue(zz, activation=activation), zz,
-                    dy.float())
-        pdt = torch.promote_types(torch.promote_types(x2.dtype, w.dtype),
-                                  out_dtype)
-        dz_p = dz.to(pdt)
-        dx = dw = db = None
-        if fctx.needs_input_grad[0]:
-            with record_function("matmul.dX"):
-                dx = prod(dz_p, w.to(pdt).t(), out_dtype=x2.dtype)
-        if fctx.needs_input_grad[1]:
-            with record_function("matmul.dW"):
-                xt = x2.to(pdt).t()
-                pad = -x2.shape[0] % 8 if pdt == torch.bfloat16 else 0
-                if pad:
-                    xt = torch.nn.functional.pad(xt, (0, pad))
-                    dz_p = torch.nn.functional.pad(dz_p, (0, 0, 0, pad))
-                dw = prod(xt.contiguous(), dz_p, out_dtype=w.dtype)
-        if fctx.needs_input_grad[2]:
-            db = dz.float().sum(0).to(bias_dtype)
-        return dx, dw, db, None, None, None, None
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_policy="dots"``, the
+    reference's ``dots_with_no_batch_dims_saveable``: K1's forward output
+    (every ``core.matmul`` is a dot with no batch dims) is saved, every
+    other op is recomputed in the backward (the batched attention, SSD and
+    expert einsums among them)."""
+    if op is torch.ops.repro_torch.gemm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_checkpoint_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint.checkpoint`` for
+    :func:`dots_policy`."""
+    return create_selective_checkpoint_contexts(dots_policy)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -196,9 +229,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     operands' promoted type.
 
     Differentiable: when grad mode is on and ``x``, ``w`` or ``bias``
-    requires grad, the product runs as :class:`_Matmul`, whose backward
-    products go through the same kernel (and are recorded by
-    ``capture_gemm_shapes`` when the backward runs inside its scope).
+    requires grad, the product runs as the ``repro_torch::gemm`` operator
+    (:func:`gemm_op`), whose backward products go through the same kernel
+    (and are recorded by ``capture_gemm_shapes`` when the backward runs
+    inside its scope).
     """
     ctx = _ctx()
     k = x.shape[-1]
@@ -208,8 +242,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(math.prod(lead), k)
     if _grad_needed(x, w, bias):
-        out = _Matmul.apply(x2, w, bias, activation, out_dtype, ctx.hardware,
-                            ctx.capture)
+        out = _differentiable(x2, w, bias, activation, out_dtype,
+                              ctx.hardware)
     else:
         out = _product(x2, w, hardware=ctx.hardware, capture=ctx.capture,
                        bias=bias, activation=activation, out_dtype=out_dtype)

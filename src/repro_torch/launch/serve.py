@@ -12,7 +12,10 @@ engine's ``ServeConfig``; ``--temperature`` samples instead of greedy
 decoding; ``--kv-int8`` serves with an int8 KV cache (which runs the wave
 scheduler, as the ssm family ``--arch mamba2-130m`` does); ``--server``
 submits every prompt to a threaded ``Server`` with a stream callback
-instead of one batched ``generate`` call.  A model with
+instead of one batched ``generate`` call; ``--trace-dir DIR`` captures a
+``torch.profiler`` trace of the serve (or of the Server's drains) into
+``DIR`` (read it with ``scripts/torch_profile.py``'s breakdown).  A model
+with
 extra inputs (the vlm family's image embeddings, the audio family's frame
 embeddings) gets random ones drawn from seed 0, one row a prompt, like its
 weights (the reference's launcher gives zeros), and cannot be served
@@ -36,7 +39,9 @@ from repro_torch.configs.catalog import get_config
 from repro_torch.core import resolve_device, tuning_db
 from repro_torch.core.hardware import find_profile, resolve_hardware
 from repro_torch.core.registry import GLOBAL_REGISTRY
+from repro_torch.launch.common import add_common_args, add_serving_args
 from repro_torch.models import build_model
+from repro_torch.profiling import trace
 from repro_torch.serve import Engine, Request, ServeConfig, Server
 
 
@@ -74,34 +79,8 @@ def main(argv=None) -> None:
     ap.add_argument("--server", action="store_true",
                     help="serve through the threaded streaming Server "
                          "instead of one batched generate call")
-    ap.add_argument("--scheduler", choices=["continuous", "wave"],
-                    default="continuous",
-                    help="continuous = paged KV + admit/evict at chunk "
-                         "boundaries (default); wave = slot-per-request")
-    ap.add_argument("--page-size", type=int, default=None,
-                    help="paged-KV page size in tokens (default 16)")
-    ap.add_argument("--capacity-tokens", type=int, default=None,
-                    help="paged-pool capacity in tokens (default: "
-                         "max_batch * max_len)")
-    ap.add_argument("--decode-chunk", type=int, default=8,
-                    help="tokens per decode chunk between scheduling "
-                         "boundaries (power of two)")
-    ap.add_argument("--no-prefix-cache", action="store_true",
-                    help="disable shared-prefix KV reuse (continuous "
-                         "scheduler only; on by default)")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda; 'cpu' runs the plain "
-                         "versions of the kernels)")
-    ap.add_argument("--hardware", default=None,
-                    help="hardware profile the tuned schedules are looked "
-                         "up for (default: $REPRO_TORCH_HARDWARE, else "
-                         "detected from the device)")
-    ap.add_argument("--tuned-dir", default=None,
-                    help="directory of tuning DBs to load (default: "
-                         "$REPRO_TORCH_TUNED_DIR, else the package's tuned/)")
-    ap.add_argument("--stats", action="store_true",
-                    help="print engine counters and kernel launch counts "
-                         "(synchronizes after prefill to split timings)")
+    add_serving_args(ap)
+    add_common_args(ap)
     args = ap.parse_args(argv)
 
     hardware = resolve_hardware(args.hardware, resolve_device(args.device))
@@ -146,12 +125,17 @@ def main(argv=None) -> None:
                             device=eng.device).to(spec.dtype)
              for k, spec in model.extra_inputs(len(prompts)).items()}
     server = None
-    if args.server:
-        outs, server = _serve_with_server(eng, prompts, args.max_new)
-    else:
-        outs = eng.generate(prompts, args.max_new, extra_inputs=extra or None)
+    with trace(args.trace_dir, enabled=bool(args.trace_dir)) as session:
+        if args.server:
+            outs, server = _serve_with_server(eng, prompts, args.max_new)
+        else:
+            outs = eng.generate(prompts, args.max_new,
+                                extra_inputs=extra or None)
     for p, o in zip(prompts, outs):
         print(f"prompt={p} -> {o}")
+    if session.enabled:
+        print(f"[trace] captured {len(session.trace_files())} trace file(s) "
+              f"under {args.trace_dir}")
     if args.stats:
         st = eng.stats()
         toks = st["tokens_generated"]

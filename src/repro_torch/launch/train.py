@@ -15,7 +15,9 @@ make the restart replay the interrupted run.  The learning rate follows
 It first prints the hardware profile the tuning registry is keyed by and
 the tuning files it loaded, as ``launch.serve`` does; then the model, one
 ``step N  loss L`` line every 10 steps, ``done at step N``, and with
-``--stats`` the step rate and tokens/s.
+``--stats`` the step rate and tokens/s.  ``--trace-dir DIR`` captures a
+``torch.profiler`` trace of the run into ``DIR``, one ``train.step`` range
+a step.
 
 The dense, moe, ssm and hybrid families train here.  The vlm and audio
 families need image or frame embeddings beside the tokens, which the token
@@ -26,10 +28,7 @@ carry those inputs.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import time
-
-import torch
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.catalog import get_config
@@ -37,8 +36,10 @@ from repro_torch.core import execution_context, resolve_device, tuning_db
 from repro_torch.core.hardware import find_profile, resolve_hardware
 from repro_torch.core.registry import GLOBAL_REGISTRY
 from repro_torch.data import DataConfig, TokenPipeline
+from repro_torch.launch.common import add_common_args
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.profiling import trace
 from repro_torch.train import (Trainer, TrainerConfig, abstract_train_state,
                                init_train_state)
 
@@ -58,20 +59,7 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--step-deadline-s", type=float, default=None)
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda; 'cpu' runs the plain "
-                         "versions of the kernels)")
-    ap.add_argument("--hardware", default=None,
-                    help="hardware profile the tuned schedules are looked "
-                         "up for (default: $REPRO_TORCH_HARDWARE, else "
-                         "detected from the device)")
-    ap.add_argument("--tuned-dir", default=None,
-                    help="directory of tuning DBs to load (default: "
-                         "$REPRO_TORCH_TUNED_DIR, else the package's tuned/)")
-    ap.add_argument("--stats", action="store_true",
-                    help="print the step rate, tokens/s and kernel launches")
-    ap.add_argument("--trace-dir", default=None,
-                    help="write a torch.profiler trace of the run here")
+    add_common_args(ap)
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if cfg.family in ("vlm", "audio"):
@@ -127,18 +115,17 @@ def main(argv=None) -> None:
 
     from repro_torch import kernels
     kernels.reset_launch_counts()
-    trace = contextlib.nullcontext()
-    if args.trace_dir:
-        trace = torch.profiler.profile(
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                args.trace_dir))
     t0 = time.perf_counter()
-    with execution_context(hardware=hardware), trace:
+    with execution_context(hardware=hardware), \
+            trace(args.trace_dir, enabled=bool(args.trace_dir)) as session:
         state, history = trainer.run(state, start_step=start)
     wall = time.perf_counter() - t0
     for step, loss in history:
         print(f"step {step:6d}  loss {loss:.4f}")
     print(f"done at step {int(state.step)}")
+    if session.enabled:
+        print(f"[trace] captured {len(session.trace_files())} trace file(s) "
+              f"under {args.trace_dir}")
     if args.stats:
         steps_run = max(int(state.step) - start, 1)
         toks = steps_run * args.batch * args.seq_len

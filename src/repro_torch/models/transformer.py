@@ -6,7 +6,8 @@ Layer params are stacked on a leading "layer" dim, as in the reference; the
 stack runs as a Python loop over that dim where the reference uses
 ``lax.scan``.  A training forward (params under grad) takes the layers
 with one ``unbind`` per leaf and, with ``cfg.remat``, recomputes each
-block in the backward (``torch.utils.checkpoint``); its cross layers
+block in the backward (``torch.utils.checkpoint``; under ``"dots"`` all but
+K1's outputs); its cross layers
 project their K, V inside the block, so those are recomputed too.  KV
 caches are ``{"self": (K, V)}`` with K, V of shape (L, B, S, KV, hd),
 updated in place; an int8 cache (``cfg.kv_quant``) holds ``{"q", "s"}``
@@ -42,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import matmul
+from repro_torch.core.gemm_api import dots_checkpoint_contexts
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -93,16 +95,21 @@ def _stack_layers(blocks, train: bool):
 
 
 def _maybe_remat(cfg: ModelConfig, fn):
-    """``fn`` recomputed in the backward (``cfg.remat``, policy "full"), as
-    the reference's ``jax.checkpoint`` of each block.  Only a training
-    forward saves activations, so only it is wrapped."""
+    """``fn`` recomputed in the backward (``cfg.remat``), as the
+    reference's ``jax.checkpoint`` of each block: policy ``"full"``
+    recomputes the whole block, ``"dots"`` keeps K1's forward outputs and
+    recomputes the rest (``gemm_api.dots_policy``, the reference's
+    ``dots_with_no_batch_dims_saveable``).  Only a training forward saves
+    activations, so only it is wrapped."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
-            "blocks only (policy 'full')")
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat_policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=dots_checkpoint_contexts)
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                     "(full | dots)")
 
 
 def _dense_block_template(cfg: ModelConfig):

@@ -95,6 +95,7 @@ from repro_torch.core.registry import GLOBAL_REGISTRY
 from repro_torch.core.tile_config import OP_GEMM, OP_PAGED_ATTN
 from repro_torch.kernels.paged import paged_copy, paged_gather, paged_scatter
 from repro_torch.models.model import Model
+from repro_torch.profiling import annotate
 from repro_torch.serve import api, kv_pages
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.reference import greedy
@@ -669,31 +670,35 @@ class Engine:
         self._plen_buckets.add(plen)
         self._record_prefill_flash_tiles(plen)
         t0 = time.perf_counter()
-        logits0, cache = self.model.prefill(self.params, batch, cache)
-        self._sync_if_profiling()
+        with annotate("serve.prefill_wave"):
+            logits0, cache = self.model.prefill(self.params, batch, cache)
+            self._sync_if_profiling()
         t1 = time.perf_counter()
-        cur = self._sample(logits0)
-        done = budget <= 0                     # empty slots start finished
-        buf = torch.zeros((b, width), dtype=torch.int32, device=self.device)
-        lens = torch.zeros((b,), dtype=torch.int32, device=self.device)
-        eos = self.cfg.eos_token
-        offset = plen
-        # Every row is done after ``need`` steps, where the reference's loop
-        # stops at the latest; the advance after the last step is skipped,
-        # as there.  Earlier steps run with finished rows masked.
-        for step in range(need):
-            buf[:, step] = torch.where(done, 0, cur)
-            lens += (~done).to(torch.int32)
-            if eos is not None:
-                done = done | (cur == eos)
-            done = done | (lens >= budget)
-            if step + 1 < need:
-                logits, cache = self._decode_step(cur[:, None], cache,
-                                                  offset, kv_start)
-                cur = self._sample(logits)
-                offset += 1
-        # The ONE device-to-host transfer of this wave.
-        host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
+        with annotate("serve.decode_wave"):
+            cur = self._sample(logits0)
+            done = budget <= 0                 # empty slots start finished
+            buf = torch.zeros((b, width), dtype=torch.int32,
+                              device=self.device)
+            lens = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            eos = self.cfg.eos_token
+            offset = plen
+            # Every row is done after ``need`` steps, where the reference's
+            # loop stops at the latest; the advance after the last step is
+            # skipped, as there.  Earlier steps run with finished rows
+            # masked.
+            for step in range(need):
+                buf[:, step] = torch.where(done, 0, cur)
+                lens += (~done).to(torch.int32)
+                if eos is not None:
+                    done = done | (cur == eos)
+                done = done | (lens >= budget)
+                if step + 1 < need:
+                    logits, cache = self._decode_step(cur[:, None], cache,
+                                                      offset, kv_start)
+                    cur = self._sample(logits)
+                    offset += 1
+            # The ONE device-to-host transfer of this wave.
+            host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
         t2 = time.perf_counter()
         self._stats["device_transfers"] += 1
         self._stats["waves"] += 1
@@ -849,16 +854,17 @@ class Engine:
         self._plen_buckets.add(plen)
         self._record_prefill_flash_tiles(plen)
         t0 = time.perf_counter()
-        logits0, filled = self.model.prefill(self.params, batch, scratch)
-        dest_t = torch.from_numpy(dest)
-        for pool, src in zip(self._pools, filled["self"]):
-            paged_scatter(pool, dest_t, src)
-        slots = torch.tensor([r.slot for r in admitted], dtype=torch.long,
-                             device=self.device)
-        if self._fixed:
-            self._scatter_fixed(filled, slots)
-        self._cur[slots] = self._sample(logits0)[slots]
-        self._sync_if_profiling()
+        with annotate("serve.prefill_admit"):
+            logits0, filled = self.model.prefill(self.params, batch, scratch)
+            dest_t = torch.from_numpy(dest)
+            for pool, src in zip(self._pools, filled["self"]):
+                paged_scatter(pool, dest_t, src)
+            slots = torch.tensor([r.slot for r in admitted],
+                                 dtype=torch.long, device=self.device)
+            if self._fixed:
+                self._scatter_fixed(filled, slots)
+            self._cur[slots] = self._sample(logits0)[slots]
+            self._sync_if_profiling()
         self._stats["prefill_seconds"] += time.perf_counter() - t0
         self._stats["admission_prefills"] += 1
         if caching:
@@ -879,16 +885,17 @@ class Engine:
         t0 = time.perf_counter()
         page = self._page_size
         b = self.cfg.max_batch
-        for req, row, entry in hits:
-            if entry.tail_page is not None:
-                dst = row.pages[len(req.prompt) // page]
-                for pool in self._pools:
-                    paged_copy(pool, entry.tail_page, dst, page)
-            if self._fixed:
-                self._restore_fixed_row(entry.fixed, row.slot)
-            # noise for all max_batch rows, this row's taken
-            first = self._sample(entry.logits0[None, :].expand(b, -1))
-            self._cur[row.slot] = first[row.slot]
+        with annotate("serve.prefix_restore"):
+            for req, row, entry in hits:
+                if entry.tail_page is not None:
+                    dst = row.pages[len(req.prompt) // page]
+                    for pool in self._pools:
+                        paged_copy(pool, entry.tail_page, dst, page)
+                if self._fixed:
+                    self._restore_fixed_row(entry.fixed, row.slot)
+                # noise for all max_batch rows, this row's taken
+                first = self._sample(entry.logits0[None, :].expand(b, -1))
+                self._cur[row.slot] = first[row.slot]
         self._stats["prefill_seconds"] += time.perf_counter() - t0
 
     def _run_chunk(self):
@@ -910,42 +917,46 @@ class Engine:
             packed[slot, width] = width - chunk - row.length
             packed[slot, width + 1] = row.budget_left
         t0 = time.perf_counter()
-        dev = torch.from_numpy(packed).to(self.device)
-        gidx = dev[:, :width]
-        kv_start = dev[:, width].to(torch.int32)
-        budget = dev[:, width + 1].to(torch.int32)
-        cache = dict(self._fixed)
-        cache["self"] = tuple(paged_gather(pool, gidx) for pool in self._pools)
-        cur = self._cur
-        done = budget <= 0                      # empty slots start finished
-        buf = torch.zeros((b, chunk), dtype=torch.int32, device=self.device)
-        lens = torch.zeros((b,), dtype=torch.int32, device=self.device)
-        eos = self.cfg.eos_token
-        offset = width - chunk
-        for step in range(chunk):
-            buf[:, step] = torch.where(done, 0, cur)
-            lens += (~done).to(torch.int32)
-            if eos is not None:
-                done = done | (cur == eos)
-            done = done | (lens >= budget)
-            # Always advance (see the module docstring): while any row is
-            # live this is the reference's step; after, it is masked work.
-            # The chunk's last advance is the next chunk's first token.
-            logits, cache = self._decode_step(cur[:, None], cache, offset,
-                                              kv_start)
-            cur = self._sample(logits)
-            offset += 1
-        sidx_t = torch.from_numpy(sidx)
-        for pool, leaf in zip(self._pools, cache["self"]):
-            paged_scatter(pool, sidx_t,
-                          leaf.narrow(leaf.ndim - 3, width - chunk, chunk))
-        # the fixed leaves the chunk's last step returned (the hybrid's SSM
-        # and conv states move on every token), as the reference's chunk
-        # returns its new fixed tree
-        self._fixed = {k: cache[k] for k in self._fixed}
-        self._cur = cur
-        # The ONE device-to-host transfer of this chunk.
-        host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
+        with annotate("serve.decode_chunk"):
+            dev = torch.from_numpy(packed).to(self.device)
+            gidx = dev[:, :width]
+            kv_start = dev[:, width].to(torch.int32)
+            budget = dev[:, width + 1].to(torch.int32)
+            cache = dict(self._fixed)
+            cache["self"] = tuple(paged_gather(pool, gidx)
+                                  for pool in self._pools)
+            cur = self._cur
+            done = budget <= 0                  # empty slots start finished
+            buf = torch.zeros((b, chunk), dtype=torch.int32,
+                              device=self.device)
+            lens = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            eos = self.cfg.eos_token
+            offset = width - chunk
+            for step in range(chunk):
+                buf[:, step] = torch.where(done, 0, cur)
+                lens += (~done).to(torch.int32)
+                if eos is not None:
+                    done = done | (cur == eos)
+                done = done | (lens >= budget)
+                # Always advance (see the module docstring): while any row
+                # is live this is the reference's step; after, it is masked
+                # work.  The chunk's last advance is the next chunk's first
+                # token.
+                logits, cache = self._decode_step(cur[:, None], cache,
+                                                  offset, kv_start)
+                cur = self._sample(logits)
+                offset += 1
+            sidx_t = torch.from_numpy(sidx)
+            for pool, leaf in zip(self._pools, cache["self"]):
+                paged_scatter(pool, sidx_t, leaf.narrow(leaf.ndim - 3,
+                                                        width - chunk, chunk))
+            # the fixed leaves the chunk's last step returned (the hybrid's
+            # SSM and conv states move on every token), as the reference's
+            # chunk returns its new fixed tree
+            self._fixed = {k: cache[k] for k in self._fixed}
+            self._cur = cur
+            # The ONE device-to-host transfer of this chunk.
+            host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
         self._stats["decode_seconds"] += time.perf_counter() - t0
         self._stats["device_transfers"] += 1
         self._stats["chunks"] += 1

@@ -12,6 +12,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.profiling import annotate
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -34,7 +35,8 @@ def generate_per_prompt(model: Model, params, prompts: List[List[int]],
         for name, arr in (extra_inputs or {}).items():
             batch[name] = arr[i:i + 1]
         cache = model.init_cache(1, max_len, device=device)
-        logits, cache = model.prefill(params, batch, cache)
+        with annotate("reference.prefill"):
+            logits, cache = model.prefill(params, batch, cache)
         offset = len(prompt)
         cur = greedy(logits)
         toks: List[int] = []
@@ -45,8 +47,9 @@ def generate_per_prompt(model: Model, params, prompts: List[List[int]],
                 break
             if len(toks) == max_new_tokens:
                 break
-            logits, cache = model.decode_step(params, cur[:, None], cache,
-                                              offset)
+            with annotate("reference.decode"):
+                logits, cache = model.decode_step(params, cur[:, None],
+                                                  cache, offset)
             offset += 1
             cur = greedy(logits)
         outs.append(toks)

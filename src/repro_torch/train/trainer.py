@@ -22,6 +22,7 @@ from repro_torch.models.model import Model
 from repro_torch.models.params import map_tree, map_trees, tree_leaves
 from repro_torch.optim import compression as comp
 from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.profiling import annotate
 from repro_torch.train.loss import lm_loss
 
 
@@ -176,7 +177,7 @@ class Trainer:
         for step_idx in range(start_step, self.cfg.total_steps):
             batch = self.data_iter(step_idx)
             t0 = time.perf_counter()
-            with torch.profiler.record_function("train.step"):
+            with annotate("train.step"):
                 state, metrics = self._step(state, batch)
             if self.cfg.step_deadline_s is not None:
                 if metrics["loss"].is_cuda:

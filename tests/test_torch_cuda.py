@@ -1026,3 +1026,84 @@ def test_cuda_bf16_dw_of_a_ragged_m_stays_on_wgmma(cuda):
     scale = wr.grad.float().abs().max().item()
     assert (w.grad.float() - wr.grad.float()).abs().max().item() <= \
         2e-2 * scale
+
+
+def test_cuda_dots_remat_gives_full_gradients_without_recompute(cuda):
+    """``remat_policy="dots"`` on the card at reduced llama3.2-1b in bf16:
+    the gradients equal ``"full"``'s bit for bit, and the backward launches
+    no forward K1 product (``"full"`` launches the 7 a layer again).
+    Deterministic algorithms on, as in ``chip_smoke.py``'s train phases:
+    index_select's backward (the embedding gradient) adds with atomics,
+    whose order changes the embedding's bits from run to run under any
+    policy."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train.trainer import _value_and_grad
+    base = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                               dtype="bfloat16")
+    params = build_model(base).init(0, device=cuda)
+    batch = TokenPipeline(DataConfig(vocab_size=base.vocab_size, seq_len=32,
+                                     global_batch=4), device=cuda)(0)
+    grads, launches = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, kw in (("none", dict(remat=False)),
+                         ("full", dict(remat=True, remat_policy="full")),
+                         ("dots", dict(remat=True, remat_policy="dots"))):
+            model = build_model(dataclasses.replace(base, **kw))
+            kernels.reset_launch_counts()
+            _, _, g = _value_and_grad(model, params, batch)
+            torch.cuda.synchronize()
+            grads[name] = tree_paths(g)
+            launches[name] = kernels.gemm_launches_by_path()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert launches["dots"] == launches["none"], launches
+    assert launches["full"]["wgmma"] == (launches["none"]["wgmma"]
+                                         + 7 * base.num_layers), launches
+    for path, g in grads["full"].items():
+        assert torch.equal(grads["dots"][path], g), path
+        assert torch.equal(grads["none"][path], g), path
+
+
+def test_cuda_profiling_trace_names_k1_and_k2(cuda, tmp_path):
+    """A ``profiling.trace`` on the card captures device events: K1's
+    kernels fall in the ``gemm`` family, K2's in ``attention``, the
+    capture passes ``validate_profile`` on the device timeline, and each
+    kernel's launcher is named (K1 and K2, launched under no PyTorch op,
+    by themselves)."""
+    from repro_torch.core import flash_attention, matmul
+    from repro_torch.profiling import (annotate, build_profile,
+                                       classify_event_name, trace,
+                                       validate_profile)
+    a, b = _operands(cuda, 0, 256, 512, 384)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(3))
+    matmul(a, b), flash_attention(q, k, v)            # builds, outside
+    with trace(str(tmp_path)) as s:
+        with annotate("serve.unit_test_span"):
+            matmul(a, b)
+            flash_attention(q, k, v)
+    events = s.events()
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    k1 = [n for n in kernels if "gemm_wgmma_kernel" in n]
+    k2 = [n for n in kernels if "flash_fwd_wgmma_kernel" in n]
+    assert k1 and k2, sorted(kernels)
+    assert {classify_event_name(n) for n in k1} == {"gemm"}
+    assert {classify_event_name(n) for n in k2} == {"attention"}
+    blob = validate_profile(build_profile("serving", events=events,
+                                          hardware="h100"))
+    assert blob["timeline"] == "device"
+    assert blob["families"]["gemm"]["count"] >= 1
+    assert blob["families"]["attention"]["count"] >= 1
+    assert blob["annotations"]["serve.unit_test_span"]["count"] == 1
+    # launched through ctypes under no PyTorch op: named by themselves
+    launchers = blob["device_us_by_launching_op"]
+    assert "gemm_wgmma_kernel" in launchers, launchers
+    assert "flash_fwd_wgmma_kernel" in launchers, launchers

@@ -327,22 +327,29 @@ def test_gradients_match_jax(arch):
     _close_trees(tg, jg, GRAD_TOL, noisy)
 
 
-def _check_remat(arch):
-    jm, tm = _pair(arch, remat=True)
+def _check_remat(arch, policy="full"):
+    """The port's gradients under ``remat_policy=policy`` against the
+    reference's under the same policy (``"dots"``: ``jax.checkpoint`` with
+    ``dots_with_no_batch_dims_saveable``), and bit-equal to its own without
+    remat and (``"dots"``) under ``"full"``."""
+    jm, tm = _pair(arch, remat=True, remat_policy=policy)
     js, ts = _states(jm, JAdamW())
     jp, tp = _pipes(arch=arch)
     grad_fn = jax.value_and_grad(lambda p, b: jax_lm_loss(jm, p, b),
                                  has_aux=True)
     _, jg = grad_fn(js.params, jp(0))
     _, _, tg = _value_and_grad(tm, ts.params, tp(0))
-    _, plain = _pair(arch)
-    _, _, pg = _value_and_grad(plain, ts.params, tp(0))
     noisy = ([grad_fn(_ulp_noise(js.params, seed), jp(0))[1]
               for seed in NOISE_SEEDS] if arch in SPREAD_ARCHS else None)
     _close_trees(tg, jg, GRAD_TOL, noisy)
-    for path, g in tree_paths(pg).items():
-        torch.testing.assert_close(tree_paths(tg)[path], g, atol=0, rtol=0,
-                                   msg=path)
+    others = [_pair(arch)[1]]
+    if policy != "full":
+        others.append(_pair(arch, remat=True, remat_policy="full")[1])
+    for other in others:
+        _, _, og = _value_and_grad(other, ts.params, tp(0))
+        for path, g in tree_paths(og).items():
+            torch.testing.assert_close(tree_paths(tg)[path], g, atol=0,
+                                       rtol=0, msg=path)
 
 
 def test_remat_gives_the_same_gradients():
@@ -361,11 +368,91 @@ def test_remat_gives_the_same_gradients_in_every_stack(arch):
     _check_remat(arch)
 
 
-def test_dots_remat_policy_is_refused_under_grad():
-    jm, tm = _pair("llama3.2-1b", remat=True, remat_policy="dots")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dots_remat_gives_the_reference_dots_gradients(arch):
+    """``remat_policy="dots"`` (K1's outputs saved, the rest recomputed)
+    in every family's stacks, the hybrid's Mamba2 layers and shared-block
+    applications included: the reference's ``"dots"`` gradients, and the
+    port's own without remat and under ``"full"``, bit for bit."""
+    _check_remat(arch, "dots")
+
+
+def _backward_calls(arch, **cfg_kw):
+    """(K1 products, ``torch.einsum`` calls) that one gradient of ``arch``'s
+    loss issues inside its backward (the products of the forward run
+    before it are not counted)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    jm, tm = _pair(arch, **cfg_kw)
     _, ts = _states(jm, JAdamW())
-    with pytest.raises(NotImplementedError, match="dots"):
+    n = {"gemm": 0, "einsum": 0}
+
+    def counting(fn, key):
+        def call(*a, **kw):
+            if torch._C._current_graph_task_id() != -1:
+                n[key] += 1
+            return fn(*a, **kw)
+        return call
+    with mock.patch.object(ops, "gemm", counting(ops.gemm, "gemm")), \
+            mock.patch.object(torch, "einsum", counting(torch.einsum,
+                                                        "einsum")):
+        _value_and_grad(tm, ts.params, _pipes(arch=arch)[1](0))
+    return n["gemm"], n["einsum"]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "olmoe-1b-7b",
+                                  "mamba2-130m", "zamba2-2.7b"])
+def test_dots_backward_recomputes_no_gemm_but_every_einsum(arch):
+    """Under ``"dots"`` the backward issues K1 products only for dX and dW,
+    as without remat; ``"full"`` issues one more a rematted forward
+    product.  The batched einsums (attention, SSD, experts) are recomputed
+    under both policies, and never without remat."""
+    none_gemm, none_einsum = _backward_calls(arch, remat=False)
+    full_gemm, full_einsum = _backward_calls(arch, remat=True)
+    dots_gemm, dots_einsum = _backward_calls(arch, remat=True,
+                                             remat_policy="dots")
+    cfg = PORT_ARCHS[arch].reduced()
+    # forward products in the rematted blocks: 7 a dense or shared-block
+    # application (q, k, v, o, gate, up, down; a MoE layer its router in
+    # place of the MLP's 3), 2 a Mamba2 layer
+    per_block = {"llama3.2-1b": 7 * cfg.num_layers,
+                 "olmoe-1b-7b": 5 * cfg.num_layers,
+                 "mamba2-130m": 2 * cfg.num_layers,
+                 "zamba2-2.7b": 2 * cfg.num_layers
+                 + 7 * (cfg.num_layers // max(cfg.attn_period, 1))}[arch]
+    assert dots_gemm == none_gemm
+    assert full_gemm == none_gemm + per_block
+    assert none_einsum == 0
+    assert dots_einsum == full_einsum > 0
+
+
+def test_unknown_remat_policy_raises_under_grad():
+    jm, tm = _pair("llama3.2-1b", remat=True, remat_policy="offload")
+    _, ts = _states(jm, JAdamW())
+    with pytest.raises(ValueError, match="offload"):
         _value_and_grad(tm, ts.params, _pipes()[1](0))
+
+
+def test_gemm_op_reads_a_transposed_operand_in_place():
+    """The ``repro_torch::gemm`` operator hands ``ops.gemm`` a transposed
+    weight (a tied head's ``embedding.t()``) with its strides, uncopied,
+    in the forward and (K-major again) in dX."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    emb = torch.randn(10, 6, requires_grad=True)
+    x = torch.randn(4, 6, requires_grad=True)
+    seen = []
+    real = ops.gemm
+
+    def gemm(a, b, *args, **kw):
+        seen.append(b.data_ptr() == emb.data_ptr() and b.stride())
+        return real(a, b, *args, **kw)
+    with mock.patch.object(ops, "gemm", gemm):
+        matmul(x, emb.t()).sum().backward()
+    assert seen[:2] == [(1, 6), (6, 1)], seen
+    torch.testing.assert_close(x.grad, torch.ones(4, 10) @ emb.detach())
 
 
 def _metrics_close(tm_, jm_, noisy=None):
