@@ -166,6 +166,18 @@ Phases, each printing one JSON line:
    tokens, 4 x 1601 image embeddings, 3 steps); their f32 steps at 2 + 2
    layers, 2 layers, 1 unit, and 1 self + the cross layer; each with its
    traced step and ``train_profile`` line (no ``"dots"`` run).
+18. ``mesh`` — the distribution layer on a one-rank mesh
+   (``build_mesh("data=1,model=1")``: NCCL, a world of one): the serve
+   phase's model, weights and 12 requests through an engine with no mesh
+   and one on the mesh (inference TP rules), cold then warm (plain, mesh,
+   mesh, plain): equal tokens, equal K1 and K2 launches by path, one
+   device-to-host copy a chunk (a traced warm pass), the ``mesh`` and
+   ``sharding`` stats; then the train phase's llama3.2-1b steps 1-3 under
+   the FSDP rules on the mesh, the state made on the mesh leaf by leaf:
+   losses against the train phase's, K1's launches by path, and the
+   params saved from the mesh and restored with no mesh, bit for bit.
+   The walls of both runs are in its line; the process group is
+   destroyed at its end.
 
 The kernels phase also holds whisper's shapes (d 1280 projections with
 biases and the GELU MLP at M = 8, 8 x 256 and the encoder's 8 x 1500, the
@@ -2430,6 +2442,235 @@ def phase_train(torch, ctx, phase: str = "train"):
 
 
 # ---------------------------------------------------------------------------
+# phase: mesh
+# ---------------------------------------------------------------------------
+
+def mesh_serve_run(torch, eng, prompts, max_new):
+    """One serve of ``prompts`` with the launch counts from 0 (the prefix
+    cache cleared first: every run prefills its prompts): tokens, wall,
+    launches by path and the engine's counters over the run."""
+    from repro_torch import kernels
+    eng.clear_prefix_cache()
+    before = eng.stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    d = {k: st[k] - before[k] for k in (
+        "tokens_generated", "decode_seconds", "prefill_seconds", "chunks",
+        "device_transfers", "admission_prefills")}
+    return outs, dict(d, wall_seconds=wall,
+                      decode_tok_per_s=d["tokens_generated"]
+                      / d["decode_seconds"],
+                      launches=kernels.launch_counts(),
+                      gemm_launches_by_path=kernels.gemm_launches_by_path(),
+                      flash_launches_by_path=kernels.flash_launches_by_path())
+
+
+def phase_mesh(torch, serve_outs, families):
+    """The distribution layer on a one-rank NCCL mesh (data=1,model=1),
+    through the code that serves a multi-rank one: DTensor placements,
+    collectives over a world of one, K1 and K2 on the local shards.  Serve:
+    the serve phase's llama3.2-1b weights (seed 0) and 12 requests through
+    an engine with no mesh and one on the mesh, cold then warm, in turns;
+    the tokens (also the serve phase's), launches by path and transfers
+    must agree.  Train: the train phase's first 3 steps under the FSDP
+    rules on the mesh; the losses bit-equal to that phase's (else within
+    ``TRAIN_BF16_TOL``), 28 wgmma products a layer + 1 and 2 fma a step,
+    and the params saved from the mesh restore with no mesh bit for bit.
+    -> two entries for ``summarize`` (``mesh_serve``, ``mesh_train``)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_paths
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.train import (Trainer, TrainerConfig,
+                                   abstract_train_state, init_train_state)
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    mesh = build_mesh("data=1,model=1")
+    out = {"phase": "mesh", "card": torch.cuda.get_device_name(0),
+           "backend": dist.get_backend(), "world": dist.get_world_size(),
+           "mesh": sh.mesh_sizes(mesh)}
+    try:
+        # -- serve: no mesh and mesh, cold then warm, in turns -----------
+        cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                                  dtype="bfloat16", attention_impl="flash")
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cuda")
+        rng = np.random.default_rng(0)
+        lens = rng.integers(5, 301, size=12)
+        prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+                   for n in lens]
+        max_new = 32
+        scfg = dict(max_batch=8, max_len=1024, decode_chunk=8, profile=True)
+        engines = {"plain": Engine(model, params, ServeConfig(**scfg)),
+                   "mesh": Engine(model, params, ServeConfig(**scfg,
+                                                             mesh=mesh))}
+        runs, toks = {}, {}
+        for name, when in (("plain", "cold"), ("mesh", "cold"),
+                           ("mesh", "warm"), ("plain", "warm")):
+            toks[f"{name}_{when}"], runs[f"{name}_{when}"] = mesh_serve_run(
+                torch, engines[name], prompts, max_new)
+        eng = engines["mesh"]
+        eng.clear_prefix_cache()
+        before = eng.stats()
+        outs_traced, events, secs = traced(
+            "mesh_serve", lambda: eng.generate(prompts, max_new))
+        st = eng.stats()
+        _, prof = profile_summary("serving", events)
+        del events
+        prof.update(secs)
+        prof.update({k: st[k] - before[k] for k in (
+            "chunks", "device_transfers", "admission_prefills")})
+        serve = {"runs": runs, "profile": prof,
+                 "tokens_equal": {k: v == toks["plain_cold"]
+                                  for k, v in toks.items()},
+                 "tokens_equal_serve_phase": toks["mesh_cold"] == serve_outs,
+                 "traced_tokens_equal": outs_traced == toks["plain_cold"],
+                 "stats_mesh": st["mesh"], "stats_sharding": st["sharding"],
+                 "template_leaves": len(tree_paths(model.template)),
+                 "decode_tile_lookups": st["decode_tile_lookups"]}
+        for w in ("cold", "warm"):
+            p, m = runs[f"plain_{w}"], runs[f"mesh_{w}"]
+            serve[f"{w}_wall_mesh_over_plain"] = (m["wall_seconds"]
+                                                  / p["wall_seconds"])
+            serve[f"{w}_decode_tok_s_mesh_over_plain"] = (
+                m["decode_tok_per_s"] / p["decode_tok_per_s"])
+        out["serve"] = serve
+        del engines, eng, params
+        free_card(torch)
+
+        # -- train: the train phase's steps 1-3 on the mesh, FSDP rules --
+        spec = TRAIN_PHASES["train"]
+        n_steps = 3
+        cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                                  dtype="bfloat16", attention_impl="chunked",
+                                  remat=True)
+        model = build_model(cfg)
+        opt = AdamW(learning_rate=warmup_cosine(1e-3, 10, spec["steps"]))
+        b, s = spec["batch"]
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=s, global_batch=b),
+                             device="cuda")
+        rules = sh.rules_for_mesh(mesh)
+        ckdir = os.path.join(HERE, "build", "mesh_checkpoint")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            held = [init_train_state(model, opt, 0, device="cuda", mesh=mesh,
+                                     rules=rules)]
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            trainer = Trainer(model, opt, pipe, TrainerConfig(
+                total_steps=n_steps, log_every=1,
+                checkpoint_every=10 ** 9, step_deadline_s=1e9),
+                mesh=mesh, rules=rules)
+            kernels.reset_launch_counts()
+            state, hist = run_from(trainer, held)
+            torch.cuda.synchronize()
+            train_run = {"launches": kernels.launch_counts(),
+                         "gemm_launches_by_path":
+                         kernels.gemm_launches_by_path(),
+                         "flash_launches_by_path":
+                         kernels.flash_launches_by_path()}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ref = next(f for f in families if f.get("phase") == "train")
+        losses = [l for _, l in hist]
+        want = ref["losses"][:n_steps]
+        ck = Checkpointer(ckdir, keep=1)
+        t0 = time.perf_counter()
+        ck.save(n_steps, {"params": state.params})
+        save_s = time.perf_counter() - t0
+        whole = {p: sh.full(t) for p, t in tree_paths(state.params).items()}
+        del state, held
+        free_card(torch)
+        template = {"params": abstract_train_state(model, opt).params}
+        back = ck.restore(n_steps, template, device="cuda")["params"]
+        restored_equal = all(torch.equal(t, whole[p])
+                             for p, t in tree_paths(back).items())
+        del back, whole
+        shutil.rmtree(ckdir, ignore_errors=True)
+        out["train"] = {
+            "model": cfg.name, "batch": [b, s], "steps": n_steps,
+            "rules": rules.describe(), "init_seconds": init_s,
+            "losses": losses, "train_phase_losses": want,
+            "losses_bit_equal": losses == want,
+            "loss_max_rel_diff": max(abs(a - w) / abs(w)
+                                     for a, w in zip(losses, want)),
+            "step_walls": trainer.step_walls,
+            "train_phase_step_walls": ref["step_walls"][:n_steps],
+            "tok_per_s_warm": b * s * (n_steps - 1)
+            / sum(trainer.step_walls[1:]),
+            "train_phase_tok_per_s_warm": ref["tok_per_s_warm"],
+            "run": train_run, "peak_mem_gb": peak,
+            "params_checkpoint_save_seconds": save_s,
+            "restored_without_mesh_bit_equal": restored_equal}
+    finally:
+        dist.destroy_process_group()
+        free_card(torch)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    # the checks, after the line is out
+    sv, tr = out["serve"], out["train"]
+    assert out["backend"] == "nccl" and out["world"] == 1, out
+    assert all(sv["tokens_equal"].values()), sv["tokens_equal"]
+    assert sv["tokens_equal_serve_phase"] and sv["traced_tokens_equal"]
+    for w in ("cold", "warm"):
+        p, m = runs[f"plain_{w}"], runs[f"mesh_{w}"]
+        for key in ("gemm_launches_by_path", "flash_launches_by_path",
+                    "device_transfers", "chunks"):
+            assert m[key] == p[key], (w, key, m[key], p[key])
+        assert m["device_transfers"] == m["chunks"], m
+    g, f = runs["mesh_cold"]["gemm_launches_by_path"], runs["mesh_cold"][
+        "flash_launches_by_path"]
+    assert g["decode"] > 0 and g["wgmma"] > 0, g
+    assert g["wmma"] == 0 and g["fma"] == 0, g
+    assert f["wgmma"] > 0 and f["fma"] == 0, f
+    prof = sv["profile"]
+    assert prof["host_syncs"] == prof["chunks"] == prof[
+        "device_transfers"], prof
+    assert sv["stats_mesh"] == {"devices": 1, "axes": {"data": 1, "model": 1},
+                                "label": "data1xmodel1"}, sv["stats_mesh"]
+    assert sum(sv["stats_sharding"]["params"].values()) == sv[
+        "template_leaves"], sv["stats_sharding"]
+    lookups = sv["decode_tile_lookups"]
+    assert lookups and all(v["local_shape"] == k and v["source"] == "exact"
+                           for k, v in lookups.items()), lookups
+    paths = tr["run"]["gemm_launches_by_path"]
+    assert paths["wgmma"] == spec["wgmma"](cfg) * n_steps, paths
+    assert paths["fma"] == 2 * n_steps, paths
+    assert paths["decode"] == paths["wmma"] == 0, paths
+    assert tr["run"]["launches"]["flash_attention"] == 0, tr["run"]
+    assert all(math.isfinite(l) for l in tr["losses"]), tr["losses"]
+    assert tr["losses_bit_equal"] or tr["loss_max_rel_diff"] <= \
+        TRAIN_BF16_TOL["loss"], (tr["losses"], tr["train_phase_losses"])
+    assert tr["restored_without_mesh_bit_equal"], tr
+    return [{"phase": "mesh_serve", "main_run": "run",
+             "run": runs["mesh_cold"]},
+            {"phase": "mesh_train", "main_run": "run", "run": tr["run"]}]
+
+
+# ---------------------------------------------------------------------------
 
 
 def _sums(mine):
@@ -2520,11 +2761,13 @@ def main(argv=None) -> int:
     rows = phase_kernels(torch, args.out)
     phase_tuning(torch)
     launches, paths, ctx = phase_serve(torch)
+    serve_outs = ctx["outs"]
     features = phase_serve_features(torch, ctx)
     families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx),
                 phase_serve_stablelm(torch, ctx), phase_serve_audio(torch, ctx),
                 phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx)]
     families += [phase_train(torch, ctx, p) for p in TRAIN_PHASES]
+    families += phase_mesh(torch, serve_outs, families)
     print(card, flush=True)
     emit({"kernels": summarize(rows, launches, paths, features, families)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,9 +21,14 @@ unless ``--full``, random weights from seed 0, ``--batch`` prompts of
 ``--batch`` x ``--seq-len`` tokens from the synthetic pipeline (train); a
 model with extra inputs (vlm, audio) gets seeded random embeddings.  It
 runs on the card (``--device cpu`` runs the plain versions, e.g. in the
-tests; its time is then host op time, ``timeline: host``).  There is no
-``--mesh`` (the port has no distribution yet, so ``mesh`` is null) and no
-roofline beside the breakdown: the port's roofline is not ported.
+tests; its time is then host op time, ``timeline: host``).  ``--mesh
+data=N,model=M`` runs it on a mesh of N x M ranks (one process a rank,
+under ``torchrun --standalone --nproc_per_node N*M``; a world of one runs
+alone), writes the mesh's label (``data1xmodel1``) as the blob's ``mesh``,
+and counts the collectives (NCCL kernels on the card, the ``c10d::`` ops
+on the CPU) in the ``collective`` family; rank 0 writes and prints.
+There is no roofline beside the breakdown: the port's roofline is not
+ported.
 """
 from __future__ import annotations
 
@@ -76,8 +81,11 @@ def render(blob: dict) -> None:
 
 
 def _write(blob: dict, out: str) -> None:
+    from repro_torch.launch.mesh import rank
     from repro_torch.profiling import validate_profile
     validate_profile(blob)
+    if rank() != 0:
+        return
     with open(out, "w") as f:
         json.dump(blob, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -85,17 +93,19 @@ def _write(blob: dict, out: str) -> None:
 
 
 def _setup(args):
-    """(config, model, hardware, device) of the run."""
+    """(config, model, hardware, device, mesh) of the run."""
     from repro_torch.configs.catalog import get_config
     from repro_torch.core import resolve_device
     from repro_torch.core.hardware import resolve_hardware
+    from repro_torch.launch.mesh import build_mesh
     from repro_torch.models import build_model
     device = resolve_device(args.device)
     hardware = resolve_hardware(args.hardware, device)
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    return cfg, build_model(cfg), hardware, device
+    return (cfg, build_model(cfg), hardware, device,
+            build_mesh(args.mesh, device=device))
 
 
 def _extras(torch, model, n: int, seed: int, device):
@@ -111,14 +121,18 @@ def cmd_serve(args) -> None:
     from repro_torch.profiling import build_profile, trace
     from repro_torch.serve import Engine, ServeConfig
 
-    cfg, model, hardware, device = _setup(args)
-    params = model.init(0, device=device)
+    from repro_torch.distributed.sharding import rules_for_mesh
+    from repro_torch.launch.mesh import mesh_axis_label
+
+    cfg, model, hardware, device, mesh = _setup(args)
+    params = model.init(0, device=device, mesh=mesh,
+                        rules=mesh and rules_for_mesh(mesh, fsdp=False))
     prompts = [[(7 * i + j) % cfg.vocab_size for j in range(args.plen)]
                for i in range(args.batch)]
     extra = _extras(torch, model, args.batch, 0, device) or None
     eng = Engine(model, params, ServeConfig(
         max_batch=args.batch, max_len=args.max_len, profile=True,
-        hardware=hardware, device=device))
+        hardware=hardware, device=device, mesh=mesh))
     print("[profile] warmup (kernel builds, allocator; outside the trace)...")
     eng.generate(prompts, args.max_new, extra_inputs=extra)
     eng.clear_prefix_cache()        # the traced pass prefills its prompts
@@ -132,7 +146,8 @@ def cmd_serve(args) -> None:
         "tokens_generated", "decode_seconds", "device_transfers", "waves",
         "chunks")}
     blob = build_profile(
-        "serving", trace_dir=trace_dir, hardware=hardware, mesh=None,
+        "serving", trace_dir=trace_dir, hardware=hardware,
+        mesh=mesh_axis_label(mesh),
         extra={"engine": dict(
             delta, scheduler=st["scheduler"],
             decode_tok_s=(delta["tokens_generated"] / delta["decode_seconds"]
@@ -149,7 +164,10 @@ def cmd_train(args) -> None:
     from repro_torch.profiling import annotate, build_profile, trace
     from repro_torch.train import Trainer, TrainerConfig, init_train_state
 
-    cfg, model, hardware, device = _setup(args)
+    from repro_torch.distributed.sharding import full
+    from repro_torch.launch.mesh import mesh_axis_label
+
+    cfg, model, hardware, device, mesh = _setup(args)
     opt = AdamW(learning_rate=1e-3)
     tokens = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                       seq_len=args.seq_len,
@@ -159,21 +177,25 @@ def cmd_train(args) -> None:
         return dict(tokens(step), **_extras(torch, model, args.batch,
                                             1000 + step, device))
     trainer = Trainer(model, opt, pipe,
-                      TrainerConfig(total_steps=args.steps + 1, log_every=10))
-    state = init_train_state(model, opt, 0, device=device)
+                      TrainerConfig(total_steps=args.steps + 1, log_every=10),
+                      mesh=mesh)
+    state = init_train_state(model, opt, 0, device=device, mesh=mesh,
+                             rules=trainer.rules)
     print("[profile] warmup step (kernel builds, allocator; outside the "
           "trace)...")
-    state, metrics = trainer._step(state, trainer.data_iter(0))
-    float(metrics["loss"])
+    # one step at a time, through the loop's own entry: Trainer.run places
+    # the state and batch and enters the mesh's activation policy
+    trainer.cfg.total_steps = 1
+    state, _ = trainer.run(state)
     trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="torch-trace-train-")
     print(f"[profile] tracing {args.steps} step(s) into {trace_dir} ...")
+    trainer.cfg.total_steps = args.steps + 1
     with trace(trace_dir):
-        for i in range(1, args.steps + 1):
-            with annotate("train.step"):
-                state, metrics = trainer._step(state, trainer.data_iter(i))
-        float(metrics["loss"])
+        state, _ = trainer.run(state, start_step=1)
+        float(full(state.step))
     blob = build_profile("training", trace_dir=trace_dir, hardware=hardware,
-                         mesh=None, extra={"steps_traced": args.steps})
+                         mesh=mesh_axis_label(mesh),
+                         extra={"steps_traced": args.steps})
     _write(blob, args.out)
     render(blob)
 
@@ -209,6 +231,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="torch device (default: cuda; 'cpu' runs the "
                             "plain versions)")
         p.add_argument("--hardware", default=None)
+        p.add_argument("--mesh", default=None,
+                       help="device mesh spec, e.g. data=1,model=1 "
+                            "(default: single-device)")
         p.add_argument("--batch", type=int, default=8)
         p.add_argument("--trace-dir", default=None,
                        help="keep the raw trace here (default: temp dir)")
@@ -235,7 +260,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    {"serve": cmd_serve, "train": cmd_train, "diff": cmd_diff}[args.cmd](args)
+    from repro_torch.launch.common import end_process_group, rank_zero_stdout
+    with rank_zero_stdout():
+        try:
+            {"serve": cmd_serve, "train": cmd_train,
+             "diff": cmd_diff}[args.cmd](args)
+        finally:
+            end_process_group()
 
 
 if __name__ == "__main__":

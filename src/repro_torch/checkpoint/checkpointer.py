@@ -27,8 +27,11 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.device import DeviceLike
+from repro_torch.distributed.sharding import distribute, full
 from repro_torch.models.params import in_layout_of
 
 _THREADS = 8
@@ -83,8 +86,14 @@ def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _write_leaf(tmp: str, name: str, t: torch.Tensor) -> dict:
-    arr, logical = _to_numpy(t)
+def _host_copy(t: torch.Tensor, keep: bool):
+    """``_to_numpy(t)`` where ``keep``, else None."""
+    return _to_numpy(t) if keep else None
+
+
+def _write_leaf(tmp: str, name: str, t) -> dict:
+    """Write one leaf: a tensor, or the ``_to_numpy`` pair of one."""
+    arr, logical = t if isinstance(t, tuple) else _to_numpy(t)
     np.save(os.path.join(tmp, name + ".npy"), arr)
     return {"shape": list(arr.shape), "dtype": str(arr.dtype),
             "logical_dtype": logical,
@@ -117,8 +126,21 @@ class Checkpointer:
         return os.path.join(self.directory, f"step_{step:08d}")
 
     def save(self, step: int, state: Any) -> str:
+        """Write ``state``.  A state on a mesh (DTensor leaves) is written
+        whole, in the layout one device writes: every rank gathers each
+        leaf in turn (a collective), rank 0 writes, and every rank returns
+        once the step is published."""
         flat = _flatten_with_paths(state)
         final = self._step_dir(step)
+        sharded = any(isinstance(t, DTensor) for _, t in flat)
+        if sharded:
+            writer = dist.get_rank() == 0
+            # one leaf whole at a time on the device (every rank takes
+            # part in each gather); rank 0 keeps a host copy of each
+            flat = [(name, _host_copy(full(t), writer)) for name, t in flat]
+            if not writer:
+                dist.barrier()
+                return final
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -133,6 +155,8 @@ class Checkpointer:
             shutil.rmtree(final)
         os.replace(tmp, final)      # atomic publish
         self._gc()
+        if sharded:
+            dist.barrier()
         return final
 
     def _steps(self) -> List[int]:
@@ -143,19 +167,30 @@ class Checkpointer:
         steps = self._steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: Any, device: DeviceLike = None) -> Any:
+    def restore(self, step: int, target: Any, device: DeviceLike = None,
+                shardings: Any = None) -> Any:
         """``target`` gives the tree's structure and each leaf's dtype and
         strides (a tensor, e.g. a ``meta`` one from
         ``abstract_train_state``).  Leaves land on ``device``; None: each
-        target leaf's own (the CPU for ``meta``)."""
+        target leaf's own (the CPU for ``meta``).  ``shardings``: a tree
+        of ``distributed.sharding.Layout`` matching ``target`` (e.g.
+        ``train.trainer.state_shardings``) re-shards every leaf onto its
+        mesh as it is read, whatever mesh wrote it (an elastic restore);
+        each rank keeps its block."""
         path = self._step_dir(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         flat = _flatten_with_paths(target)
+        layouts = dict(_flatten_with_paths(shardings)) if shardings else {}
+
+        def read(nl):
+            leaf = _read_leaf(path, nl[0], manifest["leaves"][nl[0]], nl[1],
+                              device)
+            lay = layouts.get(nl[0])
+            return leaf if lay is None else distribute(leaf, lay.mesh,
+                                                       lay.placements)
         with ThreadPoolExecutor(_THREADS) as pool:
-            leaves = list(pool.map(
-                lambda nl: _read_leaf(path, nl[0], manifest["leaves"][nl[0]],
-                                      nl[1], device), flat))
+            leaves = list(pool.map(read, flat))
         return _unflatten(target, {name: leaf for (name, _), leaf
                                    in zip(flat, leaves)})
 

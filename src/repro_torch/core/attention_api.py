@@ -13,6 +13,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.gemm_api import _ctx
 from repro_torch.core.hardware import launch_hardware
@@ -44,7 +45,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     grad mode when q, k or v requires grad: the kernel has no backward (nor
     has the reference's), and a forward autograd cannot see would leave
     the projections before it without a gradient.
+
+    On DTensors (a model placed on a mesh) the kernel runs on each rank's
+    local batch rows and heads (``distributed.ops.flash_attention``).
     """
+    if isinstance(q, DTensor):
+        from repro_torch.distributed import ops as dops
+        return dops.flash_attention(
+            q, k, v, kv_start,
+            lambda ql, kl, vl, ks: flash_attention(
+                ql, kl, vl, causal=causal, kv_start=ks, bq=bq, bk=bk))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "the flash kernel has no gradient, as in the reference; train "

@@ -23,6 +23,7 @@ import threading
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy,
                                      create_selective_checkpoint_contexts)
@@ -41,6 +42,9 @@ class ExecutionContext:
     capture: Optional[list] = None
     #: hardware profile name the registry is keyed by; None: detected
     hardware: Optional[str] = None
+    #: every product on sharded operands, as ((m, k, n) global, (m, k, n)
+    #: of this rank's local product) (the serve engine's tile provenance)
+    sharded: Optional[list] = None
 
 
 _TLS = threading.local()
@@ -233,7 +237,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     (:func:`gemm_op`), whose backward products go through the same kernel
     (and are recorded by ``capture_gemm_shapes`` when the backward runs
     inside its scope).
+
+    Sharded: with a DTensor weight (a model placed on a mesh) the product
+    runs as this function on each rank's local shards
+    (``distributed.ops.matmul``), and returns a DTensor.
     """
+    if isinstance(w, DTensor):
+        from repro_torch.distributed import ops as dops
+        return dops.matmul(x, w, bias=bias, activation=activation,
+                           out_dtype=out_dtype, local_matmul=matmul)
     ctx = _ctx()
     k = x.shape[-1]
     if w.shape[0] != k:
@@ -259,7 +271,12 @@ def einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
     they lie: an expert weight stack is not copied to f32 for it.  Other
     operands are upcast, so the contraction sums in f32.  A plain product
     outside any kernel of this package, like the reference's XLA dot.
+    Two operands of which one is a DTensor contract on each rank's local
+    shards (``distributed.ops.einsum``).
     """
+    if len(operands) == 2 and any(isinstance(o, DTensor) for o in operands):
+        from repro_torch.distributed import ops as dops
+        return dops.einsum(subscripts, *operands, local_einsum=einsum)
     if (len(operands) == 2 and operands[0].is_cuda
             and all(o.dtype == torch.bfloat16 for o in operands)):
         return contract_f32(subscripts, *operands,

@@ -1,9 +1,8 @@
 """Shared CLI surface of the launchers, as the reference's.
 
 * :func:`add_common_args` — the flags every launcher takes, with identical
-  names and help everywhere: ``--hardware``, ``--stats``, ``--tuned-dir``,
-  ``--trace-dir`` and the port's ``--device`` (no ``--mesh`` yet: the port
-  has no distribution);
+  names and help everywhere: ``--hardware``, ``--mesh``, ``--stats``,
+  ``--tuned-dir``, ``--trace-dir`` and the port's ``--device``;
 * :func:`add_serving_args` — the serving-engine group (scheduler,
   paged-KV sizing, prefix cache);
 * :func:`deprecated_flag` / :func:`forward_deprecated` — a retired flag
@@ -16,6 +15,8 @@ Launchers call these, then add their own flags on top.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import warnings
 
 
@@ -28,6 +29,10 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
                     help="hardware profile the tuned schedules are looked "
                          "up for (default: $REPRO_TORCH_HARDWARE, else "
                          "detected from the device)")
+    ap.add_argument("--mesh", default=None,
+                    help="device mesh spec: 'data=N,model=M' or 'auto' over "
+                         "the job's ranks (torchrun --standalone "
+                         "--nproc_per_node N; default: single-device)")
     ap.add_argument("--stats", action="store_true",
                     help="print engine / trainer counters and kernel launch "
                          "counts")
@@ -58,6 +63,25 @@ def add_serving_args(ap: argparse.ArgumentParser) -> None:
     grp.add_argument("--no-prefix-cache", action="store_true",
                      help="disable shared-prefix KV reuse (continuous "
                           "scheduler only; on by default)")
+
+
+@contextlib.contextmanager
+def rank_zero_stdout():
+    """Silence this process's stdout unless it is rank 0 of the job
+    (torchrun's ``RANK``): one rank prints a launcher's lines."""
+    from repro_torch.launch.mesh import rank
+    if rank() == 0:
+        yield
+        return
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        yield
+
+
+def end_process_group() -> None:
+    """Tear down the process group a ``--mesh`` run started, if any."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 class _DeprecatedAction(argparse.Action):

@@ -14,7 +14,12 @@ scheduler, as the ssm family ``--arch mamba2-130m`` does); ``--server``
 submits every prompt to a threaded ``Server`` with a stream callback
 instead of one batched ``generate`` call; ``--trace-dir DIR`` captures a
 ``torch.profiler`` trace of the serve (or of the Server's drains) into
-``DIR`` (read it with ``scripts/torch_profile.py``'s breakdown).  A model
+``DIR`` (read it with ``scripts/torch_profile.py``'s breakdown); ``--mesh
+data=N,model=M`` serves on a mesh of N x M ranks, one process a rank,
+under ``torchrun --standalone --nproc_per_node N*M`` (with ``--device
+cpu``, over gloo on the CPU), and prints ``[mesh] ...`` (only rank 0
+prints; with ``--server`` rank 0 owns the Server and the other ranks
+follow it).  A model
 with
 extra inputs (the vlm family's image embeddings, the audio family's frame
 embeddings) gets random ones drawn from seed 0, one row a prompt, like its
@@ -39,10 +44,14 @@ from repro_torch.configs.catalog import get_config
 from repro_torch.core import resolve_device, tuning_db
 from repro_torch.core.hardware import find_profile, resolve_hardware
 from repro_torch.core.registry import GLOBAL_REGISTRY
-from repro_torch.launch.common import add_common_args, add_serving_args
+from repro_torch.distributed.sharding import rules_for_mesh
+from repro_torch.launch.common import (add_common_args, add_serving_args,
+                                       end_process_group, rank_zero_stdout)
+from repro_torch.launch.mesh import build_mesh, describe_mesh, rank
 from repro_torch.models import build_model
 from repro_torch.profiling import trace
 from repro_torch.serve import Engine, Request, ServeConfig, Server
+from repro_torch.serve.server import follow
 
 
 def _serve_with_server(eng: Engine, prompts, max_new: int):
@@ -61,6 +70,14 @@ def _serve_with_server(eng: Engine, prompts, max_new: int):
 
 
 def main(argv=None) -> None:
+    with rank_zero_stdout():
+        try:
+            _main(argv)
+        finally:
+            end_process_group()
+
+
+def _main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -88,6 +105,9 @@ def main(argv=None) -> None:
     print(f"[hw] profile={hardware} "
           f"platform={prof.platform if prof else 'unknown'} "
           f"({'flag' if args.hardware else 'detected'})")
+    mesh = build_mesh(args.mesh, device=args.device)
+    if mesh is not None:
+        print(f"[mesh] {describe_mesh(mesh)}")
     # the files loaded here are the whole table: no lazy autoload of the
     # package's tuned/ under (or before) them
     GLOBAL_REGISTRY.clear()
@@ -110,7 +130,10 @@ def main(argv=None) -> None:
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_quant=True)
     model = build_model(cfg)
-    params = model.init(0, device=args.device)
+    # on a mesh each rank draws the weights whole, leaf by leaf, and keeps
+    # its block under the engine's inference rules
+    params = model.init(0, device=args.device, mesh=mesh,
+                        rules=mesh and rules_for_mesh(mesh, fsdp=False))
     prompts = [[int(t) % cfg.vocab_size for t in p.split(",")]
                for p in args.prompts.split(";")]
     eng = Engine(model, params, ServeConfig(
@@ -119,14 +142,18 @@ def main(argv=None) -> None:
         scheduler=args.scheduler, page_size=args.page_size,
         capacity_tokens=args.capacity_tokens, decode_chunk=args.decode_chunk,
         prefix_cache=not args.no_prefix_cache, device=args.device,
-        hardware=hardware))
+        hardware=hardware, mesh=mesh))
     gen = torch.Generator(device=eng.device).manual_seed(0)
     extra = {k: torch.randn(spec.shape, generator=gen,
                             device=eng.device).to(spec.dtype)
              for k, spec in model.extra_inputs(len(prompts)).items()}
     server = None
     with trace(args.trace_dir, enabled=bool(args.trace_dir)) as session:
-        if args.server:
+        if args.server and rank() != 0:
+            # rank 0's Server drives every rank's engine
+            follow(eng)
+            outs = []
+        elif args.server:
             outs, server = _serve_with_server(eng, prompts, args.max_new)
         else:
             outs = eng.generate(prompts, args.max_new,

@@ -17,7 +17,11 @@ the tuning files it loaded, as ``launch.serve`` does; then the model, one
 ``step N  loss L`` line every 10 steps, ``done at step N``, and with
 ``--stats`` the step rate and tokens/s.  ``--trace-dir DIR`` captures a
 ``torch.profiler`` trace of the run into ``DIR``, one ``train.step`` range
-a step.
+a step.  ``--mesh data=N,model=M`` trains on a mesh of N x M ranks (FSDP
+over ``data``, tensor parallel over ``model``), one process a rank, under
+``torchrun --standalone --nproc_per_node N*M``, and prints ``[mesh] ...``
+(only rank 0 prints); the retired ``--mesh-data`` / ``--mesh-model`` warn
+and forward onto ``--mesh``.
 
 The dense, moe, ssm and hybrid families train here.  The vlm and audio
 families need image or frame embeddings beside the tokens, which the token
@@ -36,7 +40,10 @@ from repro_torch.core import execution_context, resolve_device, tuning_db
 from repro_torch.core.hardware import find_profile, resolve_hardware
 from repro_torch.core.registry import GLOBAL_REGISTRY
 from repro_torch.data import DataConfig, TokenPipeline
-from repro_torch.launch.common import add_common_args
+from repro_torch.distributed.sharding import full, rules_for_mesh
+from repro_torch.launch.common import (add_common_args, deprecated_flag,
+                                       end_process_group, rank_zero_stdout)
+from repro_torch.launch.mesh import build_mesh, describe_mesh
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.profiling import trace
@@ -44,7 +51,9 @@ from repro_torch.train import (Trainer, TrainerConfig, abstract_train_state,
                                init_train_state)
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags, with the retired ``--mesh-data`` /
+    ``--mesh-model`` forwarded onto ``--mesh`` (which wins when given)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -60,7 +69,28 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--step-deadline-s", type=float, default=None)
     add_common_args(ap)
+    # retired in favour of the one --mesh spec; warn and forward
+    deprecated_flag(ap, "--mesh-data", "--mesh", type=int)
+    deprecated_flag(ap, "--mesh-model", "--mesh", type=int)
     args = ap.parse_args(argv)
+    used = getattr(args, "_deprecated_used", set())
+    if {"mesh_data", "mesh_model"} & used and not args.mesh:
+        data, model_ax = args.mesh_data or 1, args.mesh_model or 1
+        if data * model_ax > 1:
+            args.mesh = f"data={data},model={model_ax}"
+    return args
+
+
+def main(argv=None) -> None:
+    with rank_zero_stdout():
+        try:
+            _main(argv)
+        finally:
+            end_process_group()
+
+
+def _main(argv=None) -> None:
+    args = parse_args(argv)
     cfg = get_config(args.arch)
     if cfg.family in ("vlm", "audio"):
         raise SystemExit(
@@ -76,6 +106,11 @@ def main(argv=None) -> None:
     print(f"[hw] profile={hardware} "
           f"platform={prof.platform if prof else 'unknown'} "
           f"({'flag' if args.hardware else 'detected'})")
+    mesh = build_mesh(args.mesh, device=device)
+    rules = None
+    if mesh is not None:
+        rules = rules_for_mesh(mesh)
+        print(f"[mesh] {describe_mesh(mesh)} rules={rules}")
     GLOBAL_REGISTRY.clear()
     GLOBAL_REGISTRY.mark_autoloaded()
     loaded = tuning_db.load_all(GLOBAL_REGISTRY, args.tuned_dir)
@@ -101,17 +136,19 @@ def main(argv=None) -> None:
                          microbatches=args.microbatches,
                          use_compression=args.compress_grads,
                          step_deadline_s=args.step_deadline_s)
-    trainer = Trainer(model, opt, pipe, tcfg, checkpointer=ck)
+    trainer = Trainer(model, opt, pipe, tcfg, checkpointer=ck, mesh=mesh,
+                      rules=rules)
 
     start = 0
     if args.resume and ck is not None and ck.latest_step() is not None:
         start = ck.latest_step()
         state = ck.restore(start, abstract_train_state(
-            model, opt, args.compress_grads), device=device)
+            model, opt, args.compress_grads), device=device,
+            shardings=trainer.layouts)
         print(f"resumed from step {start}")
     else:
         state = init_train_state(model, opt, 0, args.compress_grads,
-                                 device=device)
+                                 device=device, mesh=mesh, rules=rules)
 
     from repro_torch import kernels
     kernels.reset_launch_counts()
@@ -122,12 +159,12 @@ def main(argv=None) -> None:
     wall = time.perf_counter() - t0
     for step, loss in history:
         print(f"step {step:6d}  loss {loss:.4f}")
-    print(f"done at step {int(state.step)}")
+    print(f"done at step {int(full(state.step))}")
     if session.enabled:
         print(f"[trace] captured {len(session.trace_files())} trace file(s) "
               f"under {args.trace_dir}")
     if args.stats:
-        steps_run = max(int(state.step) - start, 1)
+        steps_run = max(int(full(state.step)) - start, 1)
         toks = steps_run * args.batch * args.seq_len
         print(f"[stats] hw={hardware}, {steps_run} step(s) in {wall:.1f}s "
               f"({steps_run / wall:.2f} step/s, {toks / wall:.0f} tok/s), "

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
@@ -73,14 +74,14 @@ def template(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def _mamba_block(cfg, bp, x):
-    return x + S.ssm_block(bp["ssm"], L.apply_norm(bp["ln"], x, eps=cfg.norm_eps),
-                           cfg)
+    return constrain(x + S.ssm_block(
+        bp["ssm"], L.apply_norm(bp["ln"], x, eps=cfg.norm_eps), cfg), "hidden")
 
 
 def _mamba_block_prefill(cfg, bp, x, valid=None):
     y, state = S.ssm_block(bp["ssm"], L.apply_norm(bp["ln"], x, eps=cfg.norm_eps),
                            cfg, return_state=True, valid_mask=valid)
-    return x + y, state
+    return constrain(x + y, "hidden"), state
 
 
 def _mamba_block_step(cfg, bp, x, state):
@@ -99,7 +100,9 @@ def _shared_attn_apply(cfg, sp, x, positions, kv_cache=None, cache_offset=None,
         p_dtype=getattr(torch, cfg.attn_p_dtype),
         attn_impl=cfg.attention_impl, kv_start=kv_start)
     x = x + h
-    return x + L.mlp(sp["mlp"], L.apply_norm(sp["ln2"], x, eps=cfg.norm_eps))
+    return constrain(
+        x + L.mlp(sp["mlp"], L.apply_norm(sp["ln2"], x, eps=cfg.norm_eps)),
+        "hidden")
 
 
 def _stacks(cfg, params, train: bool = False):

@@ -14,8 +14,10 @@ import logging
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import einsum, matmul
+from repro_torch.distributed import ops as dops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.params import ParamSpec
 
@@ -270,13 +272,13 @@ def attention(
         if isinstance(ck, dict):   # int8-quantized cache: {"q": i8, "s": f32}
             for leaf, x_new in ((ck, k), (cv, v)):
                 xq, xs = kv_quantize(x_new)
-                leaf["q"][:, off:off + s] = xq
-                leaf["s"][:, off:off + s] = xs
+                _write_columns(leaf["q"], off, xq)
+                _write_columns(leaf["s"], off, xs)
             k = kv_dequantize(ck["q"], ck["s"], k.dtype)
             v = kv_dequantize(cv["q"], cv["s"], v.dtype)
         else:
-            ck[:, off:off + s] = k.to(ck.dtype)
-            cv[:, off:off + s] = v.to(cv.dtype)
+            _write_columns(ck, off, k.to(ck.dtype))
+            _write_columns(cv, off, v.to(cv.dtype))
             k, v = ck, cv
         q_offset = off
         kv_len = off + s
@@ -296,6 +298,15 @@ def attention(
                         kv_len=kv_len, chunk=q_chunk, p_dtype=p_dtype,
                         kv_start=kv_start)
     return matmul(out.reshape(b, s, h * hd), params["wo"]), new_cache
+
+
+def _write_columns(cache: torch.Tensor, off: int, new: torch.Tensor) -> None:
+    """``cache[:, off:off + S] = new`` in place (a cache on a mesh may split
+    its sequence over an axis: each rank writes the columns it holds)."""
+    if isinstance(cache, DTensor):
+        dops.write_slice(cache, 1, off, new)
+    else:
+        cache[:, off:off + new.shape[1]] = new
 
 
 # ---------------------------------------------------------------------------

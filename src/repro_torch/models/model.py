@@ -8,10 +8,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike
+from repro_torch.distributed.ctx import current_mesh, current_rules
 from repro_torch.models import hybrid as H
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.params import init_params, param_count
+from repro_torch.models.params import init_params, param_count, tree_paths
 
 
 class TensorSpec(NamedTuple):
@@ -26,10 +27,26 @@ class Model:
     cfg: ModelConfig
     template: Any                          # ParamSpec tree
 
-    def init(self, seed: int = 0, device: DeviceLike = None):
-        """Seeded random params on ``device`` (default: the card)."""
+    def init(self, seed: int = 0, device: DeviceLike = None, mesh=None,
+             rules=None):
+        """Seeded random params on ``device`` (default: the card).  With
+        ``mesh`` (else the ambient ``distributed.use_mesh`` one) every leaf
+        is placed by the sharding rules (``rules``, else the ambient ones,
+        else ``rules_for_mesh(mesh)``) as it is drawn: the same values,
+        a sharded layout."""
+        place = None
+        if mesh is None:
+            mesh, rules = current_mesh(), rules or current_rules()
+        if mesh is not None:
+            from repro_torch.distributed import sharding as sh
+            rules = rules or sh.rules_for_mesh(mesh)
+            layouts = tree_paths(sh.param_placements(mesh, rules,
+                                                     self.template))
+
+            def place(path, leaf):
+                return sh.distribute(leaf, mesh, layouts[path].placements)
         return init_params(self.template, seed, default_dtype=self.cfg.dtype,
-                           device=device)
+                           device=device, place=place)
 
     def param_count(self) -> int:
         return param_count(self.template)

@@ -14,13 +14,17 @@ every group form one (B*C, D) operand of the batched product with the
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import einsum, matmul
+from repro_torch.distributed import ops as dops
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models.params import ParamSpec
 
 
@@ -89,8 +93,15 @@ def _route_group(x: torch.Tensor, logits: torch.Tensor, *, top_k: int,
     return buf[:-1].view(num_experts, b, cap, d), route
 
 
-def _combine_group(expert_out: torch.Tensor, route, s: int, top_k: int,
-                   cap: int, dtype: torch.dtype) -> torch.Tensor:
+def _dispatch(buf):
+    """``constrain(., "moe_dispatch")`` of an expert-major (E, B, C, D)
+    buffer, through its (B, E, C, D) view."""
+    return constrain(buf.transpose(0, 1), "moe_dispatch").transpose(0, 1)
+
+
+def _combine_group(expert_out: torch.Tensor, slot_exp, slot_pos, keep, gate,
+                   *, s: int, top_k: int, cap: int,
+                   dtype: torch.dtype) -> torch.Tensor:
     """Gather each slot's expert output (E, B, C, D) back to its token and
     sum the k choices weighted by their gates -> (B, S, D) in ``dtype``.
 
@@ -98,7 +109,6 @@ def _combine_group(expert_out: torch.Tensor, route, s: int, top_k: int,
     (a dropped choice reads some slot, at weight 0), the weight is rounded
     to ``dtype`` before the product with the f32 output, and the sum over k
     runs in f32."""
-    slot_exp, slot_pos, keep, gate = route
     e, b, c, d = expert_out.shape
     src = (slot_exp * cap + slot_pos).clamp(0, e * c - 1)
     rows = ((src // cap) * b + _group_rows(b, src.device)) * cap + src % cap
@@ -118,14 +128,32 @@ def moe_layer(params, x: torch.Tensor, *, top_k: int, num_experts: int,
     b, s, d = x.shape
     cap = capacity(s, num_experts, top_k, capacity_factor)
     logits = matmul(x, params["router"])                         # (B, S, E)
-    buf, route = _route_group(x, logits, top_k=top_k,
-                              num_experts=num_experts, cap=cap)
+    route_fn = functools.partial(_route_group, top_k=top_k,
+                                 num_experts=num_experts, cap=cap)
+    combine_fn = functools.partial(_combine_group, s=s, top_k=top_k, cap=cap,
+                                   dtype=x.dtype)
+    sharded = isinstance(logits, DTensor)
+    if sharded:
+        # every batch row is one routing group: each rank routes its own
+        # rows, and the expert products run with the experts on the tensor
+        # axis (the reference's moe_dispatch pins, on the (B, E, C, D)
+        # view of the expert-major buffer)
+        buf, route = dops.batch_local(route_fn, [x, logits], [0, 0],
+                                      (1, (0, 0, 0, 0)))
+        buf = _dispatch(buf)
+    else:
+        buf, route = route_fn(x, logits)
 
     # Expert FFN: products over the expert axis, f32 results.
     h = F.silu(einsum("ebcd,edf->ebcf", buf, params["w_gate"]))
     h = h * einsum("ebcd,edf->ebcf", buf, params["w_up"])
     out_e = einsum("ebcf,efd->ebcd", h.to(x.dtype), params["w_down"])
-    out = _combine_group(out_e, route, s, top_k, cap, x.dtype)
+    if sharded:
+        out = constrain(dops.batch_local(combine_fn, [_dispatch(out_e),
+                                                      *route],
+                                         [1, 0, 0, 0, 0], 0), "hidden")
+    else:
+        out = combine_fn(out_e, *route)
     if not with_aux:
         return out, None
 

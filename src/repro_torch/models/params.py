@@ -90,13 +90,20 @@ def _leaf_seed(seed: int, path: str) -> int:
 
 
 def init_params(template, seed: int = 0, default_dtype: str = "float32",
-                device: DeviceLike = None):
+                device: DeviceLike = None, place=None):
     """Random parameters from a template, drawn on ``device`` (default: the
     card).  Each leaf has its own generator, seeded from ``seed`` and the
-    leaf's path, so values do not depend on the order of the walk."""
+    leaf's path, so values do not depend on the order of the walk (nor on
+    the rank: every rank of a mesh draws the same).  ``place(path, leaf)``
+    is applied to each leaf as it is drawn (a mesh's placement), so one
+    whole leaf at a time is live beside the placed tree."""
     dev = resolve_device(device)
 
     def init_leaf(path: str, spec: ParamSpec) -> torch.Tensor:
+        leaf = draw_leaf(path, spec)
+        return leaf if place is None else place(path, leaf)
+
+    def draw_leaf(path: str, spec: ParamSpec) -> torch.Tensor:
         dtype = getattr(torch, spec.dtype or default_dtype)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dtype, device=dev)

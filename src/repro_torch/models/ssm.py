@@ -18,10 +18,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import einsum, matmul
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.distributed import ops as dops
 from repro_torch.models.params import ParamSpec
 
 
@@ -112,15 +114,42 @@ def ssm_block(params, x: torch.Tensor, cfg: ModelConfig,
     positions add nothing to the state, so the state entering the first
     real token is exactly the zero init).
     """
-    b, s, _ = x.shape
+    zxbcdt = matmul(x, params["in_proj"])
+    inner = [params[name] for name in _INNER]
+    if isinstance(zxbcdt, DTensor):
+        # the projection's columns are z | xBC | dt, which a split over
+        # the tensor axis cuts across: the SSD runs on each rank's batch
+        # rows, whole, between the sharded in_proj and out_proj
+        res = dops.batch_local(
+            lambda zl, vl, *pl: _ssd(cfg, zl, vl, pl, return_state),
+            [zxbcdt, valid_mask, *inner], [0, 0] + [None] * len(inner),
+            (0, {"conv": 0, "ssm": 0}) if return_state else 0)
+    else:
+        res = _ssd(cfg, zxbcdt, valid_mask, inner, return_state)
+    y, state = res if return_state else (res, None)
+    out = matmul(y, params["out_proj"])
+    return (out, state) if return_state else out
+
+
+#: the SSM params the SSD reads between in_proj and out_proj
+_INNER = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm")
+
+
+def _ssd(cfg: ModelConfig, zxbcdt, valid_mask, inner, return_state: bool):
+    """The SSD between the projections: the conv, the chunked scan and the
+    gated norm.  -> y (B, S, d_inner) (and the state with
+    ``return_state``)."""
+    params = dict(zip(_INNER, inner))
+    b, s, _ = zxbcdt.shape
     d_inner, n_heads, _, _ = ssm_dims(cfg)
     p = cfg.ssm_head_dim
     n = cfg.ssm_state
     k = cfg.ssm_conv
     l = _chunk_len(s, cfg.ssm_chunk)  # noqa: E741
     nc = s // l
+    dtype = zxbcdt.dtype
 
-    z, xBC, dt = _split_zxbcdt(cfg, matmul(x, params["in_proj"]))
+    z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
     if valid_mask is not None:
         xBC = torch.where(valid_mask[..., None], xBC, 0)
     xBC_pre = xBC
@@ -144,7 +173,7 @@ def ssm_block(params, x: torch.Tensor, cfg: ModelConfig,
     # --- intra-chunk (the dense part of SSD) ---------------------------
     cb = einsum("bcln,bcsn->bcls", cc, bc)                             # (B,nc,L,L)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]                # (B,nc,L,S,H)
-    causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    causal = torch.ones(l, l, dtype=torch.bool, device=zxbcdt.device).tril()
     decay = _intra_chunk_decay(seg, causal[None, None, :, :, None])
     scores = cb[..., None] * decay * dtc[:, :, None, :, :]             # (B,nc,L,S,H)
     y_diag = einsum("bclsh,bcshp->bclhp", scores, xc)
@@ -168,19 +197,18 @@ def ssm_block(params, x: torch.Tensor, cfg: ModelConfig,
     y = y + (params["D"].float()[None, None, :, None]
              * xs.reshape(b, s, n_heads, p).float())
 
-    y = _gated_norm(params["norm"], y.reshape(b, s, d_inner).to(x.dtype), z,
+    y = _gated_norm(params["norm"], y.reshape(b, s, d_inner).to(dtype), z,
                     cfg.norm_eps)
-    out = matmul(y, params["out_proj"])
     if not return_state:
-        return out
+        return y
     conv = xBC_pre[:, max(s - (k - 1), 0):, :]      # last K-1 pre-conv inputs
     if conv.shape[1] < k - 1:
         # a prompt shorter than K-1: its left context is zeros
         conv = F.pad(conv, (0, 0, k - 1 - conv.shape[1], 0))
     # copies, so that the state does not keep the whole (B, S, C) input
     # and (B, nc, H, N, P) chunk states alive while later layers run
-    return out, {"conv": conv.contiguous(),
-                 "ssm": inc[:, -1].contiguous()}    # state after position S
+    return y, {"conv": conv.contiguous(),
+               "ssm": inc[:, -1].contiguous()}      # state after position S
 
 
 def ssm_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -200,12 +228,34 @@ def ssm_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
 def ssm_decode_step(params, x: torch.Tensor, state, cfg: ModelConfig):
     """Single-token recurrent step.  x: (B, 1, D) -> (y (B, 1, D), state),
     ``state``'s tensors updated in place."""
-    b = x.shape[0]
+    zxbcdt = matmul(x[:, 0], params["in_proj"])
+    inner = [params[name] for name in _INNER]
+    conv, ssm = state["conv"], state["ssm"]
+    if isinstance(zxbcdt, DTensor):
+        # on each rank's batch rows, whole (see ssm_block); the states it
+        # updates are copies where the cache splits channels or heads over
+        # the tensor axis, so they are written back
+        y, new_conv, new_ssm = dops.batch_local(
+            lambda zl, cl, sl, *pl: _step(cfg, zl, cl, sl, pl),
+            [zxbcdt, conv, ssm, *inner], [0, 0, 0] + [None] * len(inner),
+            (0, 0, 0))
+        for dst, src in ((conv, new_conv), (ssm, new_ssm)):
+            dst.to_local().copy_(src.redistribute(
+                dst.device_mesh, dst.placements).to_local())
+    else:
+        y, _, _ = _step(cfg, zxbcdt, conv, ssm, inner)
+    out = matmul(y, params["out_proj"])[:, None, :]
+    return out, state
+
+
+def _step(cfg: ModelConfig, zxbcdt, conv, ssm, inner):
+    """The decode step between the projections, ``conv`` and ``ssm``
+    updated in place.  -> (y (B, d_inner), conv, ssm)."""
+    params = dict(zip(_INNER, inner))
+    b = zxbcdt.shape[0]
     d_inner, n_heads, _, _ = ssm_dims(cfg)
     p, n = cfg.ssm_head_dim, cfg.ssm_state
-
-    z, xBC, dt = _split_zxbcdt(cfg, matmul(x[:, 0], params["in_proj"]))
-    conv, ssm = state["conv"], state["ssm"]
+    z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
     window = torch.cat([conv, xBC[:, None, :].to(conv.dtype)], dim=1)  # (B,K,C)
     conv_out = F.silu((window * params["conv_w"][None]).sum(1)
                       + params["conv_b"])
@@ -223,7 +273,6 @@ def ssm_decode_step(params, x: torch.Tensor, state, cfg: ModelConfig):
     y = einsum("bn,bhnp->bhp", cs.float(), ssm)
     y = y + params["D"].float()[None, :, None] * xh
 
-    y = _gated_norm(params["norm"], y.reshape(b, d_inner).to(x.dtype), z,
-                    cfg.norm_eps)
-    out = matmul(y, params["out_proj"])[:, None, :]
-    return out, state
+    y = _gated_norm(params["norm"], y.reshape(b, d_inner).to(zxbcdt.dtype),
+                    z, cfg.norm_eps)
+    return y, conv, ssm

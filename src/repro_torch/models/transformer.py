@@ -39,12 +39,15 @@ import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import matmul
 from repro_torch.core.gemm_api import dots_checkpoint_contexts
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.distributed import ops as dops
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.params import ParamSpec, map_tree, tree_leaves
@@ -235,6 +238,7 @@ def _run_dense_stack(cfg, blocks, x, positions, caches=None,
         x, _, a = block(cfg, bp, x, positions, kv_cache=cache,
                         cache_offset=cache_offset, kv_start=kv_start,
                         with_aux=with_aux)
+        x = constrain(x, "hidden")
         if with_aux:
             aux = aux + a
     return x, caches, (aux if with_aux else None)
@@ -294,6 +298,7 @@ def _run_vlm_stack(cfg, params, x, positions, cross_cache, caches=None,
             x = cross(cfg, crosses[u], x, cross_cache)
         else:
             x = _cross_block(cfg, crosses[u], x, (ks[u], vs[u]))
+        x = constrain(x, "hidden")
     return x, caches, (aux if with_aux else None)
 
 
@@ -319,7 +324,7 @@ def _run_encoder(cfg: ModelConfig, params, encoder_embeds):
     train = _requires_grad(blocks)
     block = _maybe_remat(cfg, _encoder_block) if train else _encoder_block
     for bp in _stack_layers(blocks, train):
-        x = block(cfg, bp, x)
+        x = constrain(block(cfg, bp, x), "hidden")
     return L.apply_norm(params["enc_ln_f"], x, eps=cfg.norm_eps)
 
 
@@ -370,14 +375,14 @@ def _run_whisper_decoder(cfg, params, x, positions, cross_cache, caches=None,
     if train:
         block = _maybe_remat(cfg, _whisper_dec_block_of)
         for bp in layers:
-            x = block(cfg, bp, x, positions, cross_cache)
+            x = constrain(block(cfg, bp, x, positions, cross_cache), "hidden")
         return x, caches, (0.0 if with_aux else None)
     ks, vs = cross_cache
     for i, bp in enumerate(layers):
         cache = None if caches is None else tuple(_layer(c, i) for c in caches)
-        x = _whisper_dec_block(cfg, bp, x, positions, (ks[i], vs[i]),
-                               kv_cache=cache, cache_offset=cache_offset,
-                               kv_start=kv_start)
+        x = constrain(_whisper_dec_block(
+            cfg, bp, x, positions, (ks[i], vs[i]), kv_cache=cache,
+            cache_offset=cache_offset, kv_start=kv_start), "hidden")
     return x, caches, (0.0 if with_aux else None)
 
 
@@ -411,9 +416,18 @@ def _run_stack(cfg, params, x, positions, cross_cache=None, train=False,
     return _run_dense_stack(cfg, params["blocks"], x, positions, **kw)
 
 
+def _lookup(table, tokens):
+    return table.index_select(0, tokens.reshape(-1)).reshape(
+        *tokens.shape, -1)
+
+
 def _embed(cfg, params, tokens):
-    rows = params["embedding"].index_select(0, tokens.reshape(-1))
-    return rows.reshape(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
+    table = params["embedding"]
+    if isinstance(table, DTensor):
+        rows = dops.embedding(table, tokens, _lookup)
+    else:
+        rows = _lookup(table, tokens)
+    return constrain(rows.to(getattr(torch, cfg.dtype)), "hidden")
 
 
 def unembed_weight(cfg: ModelConfig, params):
@@ -423,8 +437,8 @@ def unembed_weight(cfg: ModelConfig, params):
 
 def _unembed(cfg, params, x):
     x = L.apply_norm(params["ln_f"], x, eps=cfg.norm_eps)
-    return matmul(x, unembed_weight(cfg, params).to(x.dtype),
-                  out_dtype=torch.float32)
+    return constrain(matmul(x, unembed_weight(cfg, params).to(x.dtype),
+                            out_dtype=torch.float32), "logits")
 
 
 def _positions(batch: int, seq: int, device, offset: int = 0):

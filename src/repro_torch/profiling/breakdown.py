@@ -55,8 +55,11 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # activity on, so its time is the device events' even where there are none
 _CUDA_HOST_CATEGORIES = ("cuda_runtime", "cuda_driver")
 
+#: NCCL kernels on the card; on the CPU the c10d ops (DTensor's functional
+#: collectives and their waits, gloo's)
 _COLLECTIVE_RE = re.compile(
-    r"nccl|c10d::|all_?reduce|all_?gather|reduce_?scatter|all_?to_?all")
+    r"nccl|c10d(_functional)?::|all_?reduce|all_?gather|reduce_?scatter|"
+    r"all_?to_?all")
 _ATTENTION_RE = re.compile(
     r"flash|fmha|softmax|attention|scaled_dot_product")
 _GEMM_RE = re.compile(

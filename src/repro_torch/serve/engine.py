@@ -79,12 +79,14 @@ with two schedulers sharing one model path.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import kernels
 from repro_torch.core.attention_api import flash_tile_lookup
@@ -93,7 +95,11 @@ from repro_torch.core.gemm_api import capture_gemm_shapes, execution_context
 from repro_torch.core.hardware import find_profile, resolve_hardware
 from repro_torch.core.registry import GLOBAL_REGISTRY
 from repro_torch.core.tile_config import OP_GEMM, OP_PAGED_ATTN
+from repro_torch.distributed import ctx as dctx
+from repro_torch.distributed import ops as dops
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.paged import paged_copy, paged_gather, paged_scatter
+from repro_torch.launch.mesh import build_mesh, describe_mesh
 from repro_torch.models.model import Model
 from repro_torch.profiling import annotate
 from repro_torch.serve import api, kv_pages
@@ -152,6 +158,9 @@ class ServeConfig:
     device: Optional[str] = None      # None -> the card ("cuda")
     # hardware profile the tuning registry is keyed by; None -> detected
     hardware: Optional[str] = None
+    # a --mesh spec ("data=4,model=2") or a DeviceMesh; None -> the ambient
+    # distributed.use_mesh() one, else one device
+    mesh: object = None
 
 
 @dataclasses.dataclass
@@ -215,9 +224,14 @@ def _fixed_leaves(tree, kind: Optional[str] = None):
 
 
 def _fixed_rows(tree, slot: int):
-    """Views of ``slot``'s rows of every leaf of a fixed-cache tree."""
+    """Views of ``slot``'s rows of every leaf of a fixed-cache tree (on a
+    mesh, of this rank's part of the row; None where another rank holds
+    it)."""
     for leaf, bd in _fixed_leaves(tree):
-        yield leaf.select(bd, slot)
+        if isinstance(leaf, DTensor):
+            yield dops.local_row(leaf, bd, slot)
+        else:
+            yield leaf.select(bd, slot)
 
 
 class Engine:
@@ -243,8 +257,25 @@ class Engine:
             raise ValueError(f"params live on {pdev}, the engine runs on "
                              f"{self.device}")
         self.model = model
-        self.params = params
         self.cfg = cfg
+        # Mesh topology: explicit config > ambient use_mesh() > one device,
+        # resolved once, like the hardware profile.  Serving replicates the
+        # weights over the data axes and splits them over the tensor axis
+        # only (inference TP, rules_for_mesh(fsdp=False)): a decode GEMM is
+        # too small to amortise the per-step weight gathers of FSDP.
+        # Explicit ambient rules win.
+        mesh, rules = cfg.mesh, None
+        if mesh is None:
+            mesh, rules = dctx.current_mesh(), dctx.current_rules()
+        if isinstance(mesh, str):
+            mesh = build_mesh(mesh, device=self.device)
+        self.mesh = mesh
+        self.rules = None
+        if mesh is not None:
+            self.rules = rules or sh.rules_for_mesh(mesh, fsdp=False)
+            params = sh.shard_params(params, mesh, self.rules,
+                                     model.template)
+        self.params = params
         # resolved once: every lookup (and the stats' provenance) of this
         # engine is keyed by one profile
         self.hardware = resolve_hardware(cfg.hardware, self.device)
@@ -312,24 +343,88 @@ class Engine:
         return min(page, self._capacity_tokens), source
 
     def _decode_step(self, tokens, cache, offset, kv_start):
-        """``model.decode_step``; the first one also records the registry's
-        resolution of each GEMM shape it runs (``decode_tile_lookups``)."""
+        """``model.decode_step`` on the host's (B, 1) tokens and (B,)
+        ``kv_start``, -> (the whole (B, V) logits, cache); the first one
+        also records the registry's resolution of each GEMM shape it runs
+        (``decode_tile_lookups``).  On a mesh each rank's products run on
+        local shapes, and the lookup is keyed by them: each entry carries
+        its ``local_shape``, and a global (K, N) that weights split two
+        ways is keyed ``global->local`` for each."""
+        tokens, kv_start = self._place((tokens, kv_start))
         if self._tile_lookups is not None:
-            return self.model.decode_step(self.params, tokens, cache, offset,
-                                          kv_start)
-        with capture_gemm_shapes() as shapes:
-            out = self.model.decode_step(self.params, tokens, cache, offset,
-                                         kv_start)
+            logits, cache = self.model.decode_step(self.params, tokens, cache,
+                                                   offset, kv_start)
+            return sh.full(logits), cache
+        pairs: list = []
+        with capture_gemm_shapes() as shapes, \
+                execution_context(sharded=pairs):
+            logits, cache = self.model.decode_step(self.params, tokens, cache,
+                                                   offset, kv_start)
         dtype = self.model.cfg.dtype
         lookups = {}
-        for (m, k, n) in sorted(set(shapes)):
+        if self.mesh is None:
+            pairs = [(shape, None) for shape in shapes]
+        else:
+            div = sh.local_gemm_divisors(self.mesh, self.rules,
+                                         self.model.template)
+        for (m, k, n), local in sorted(set(pairs)):
             res = GLOBAL_REGISTRY.lookup_op(OP_GEMM, self.hardware, dtype,
-                                            (m, k, n))
-            lookups[f"{m}x{k}x{n}"] = {"source": res.source,
-                                       "tile": res.config.schedule,
-                                       "matched_shape": res.matched_shape}
+                                            local or (m, k, n))
+            entry = {"source": res.source, "tile": res.config.schedule,
+                     "matched_shape": res.matched_shape}
+            key = f"{m}x{k}x{n}"
+            if local is not None:
+                entry["local_shape"] = "x".join(map(str, local))
+                entry["mesh"] = res.mesh
+                if len(div.get((k, n), ())) > 1:
+                    key = f"{key}->{entry['local_shape']}"
+            lookups[key] = entry
         self._tile_lookups = lookups
-        return out
+        return sh.full(logits), cache
+
+    # -- the mesh ---------------------------------------------------------
+    def _place(self, tree):
+        """Put the host-made (B, ...) inputs of a model call (the same on
+        every rank) on the mesh, batch split over the data axes; a no-op
+        with no mesh.  None leaves stay None."""
+        if self.mesh is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self._place(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(self._place(v) for v in tree)
+        if tree is None:
+            return None
+        return sh.distribute(tree, self.mesh, sh.placements_for(
+            self.mesh, sh.batch_spec(self.mesh, self.rules, tree.shape[0],
+                                     tree.dim())))
+
+    def _place_cache(self, cache):
+        """A cache tree placed by ``cache_shardings`` (no-op, no mesh)."""
+        if self.mesh is None:
+            return cache
+        return sh.distribute_tree(cache, sh.cache_shardings(
+            self.mesh, self.rules, cache))
+
+    def _gather_pool(self, pool, gidx):
+        """``paged_gather``; on a mesh each rank gathers its batch rows of
+        its pool block, laid out as ``cache_shardings`` lays a dense
+        cache."""
+        if self.mesh is None:
+            return paged_gather(pool, gidx)
+        shape = tuple(pool.shape[:-3]) + tuple(gidx.shape) + tuple(
+            pool.shape[-2:])
+        spec = sh.cache_spec(self.mesh, self.rules, shape, len(shape) - 4,
+                             seq_dim=len(shape) - 3, head_dim=len(shape) - 2)
+        return dops.paged_gather(pool, gidx, sh.placements_for(self.mesh,
+                                                                spec),
+                                 paged_gather)
+
+    def _scatter_pool(self, pool, idx, cols) -> None:
+        if self.mesh is None:
+            paged_scatter(pool, idx, cols)
+        else:
+            dops.paged_scatter(pool, idx, cols, paged_scatter)
 
     def _record_prefill_flash_tiles(self, plen: int) -> None:
         """Record the registry's resolution of this prefill bucket's flash
@@ -369,7 +464,8 @@ class Engine:
         makes the fixed leaves, the cross K/V and the SSM states, anew)."""
         cache = self.model.init_cache(self.cfg.max_batch, max_len,
                                       device=self.device)
-        return {k: v for k, v in cache.items() if k == "self"}
+        return self._place_cache({k: v for k, v in cache.items()
+                                  if k == "self"})
 
     def _ensure_cache(self):
         """One dense ``init_cache(max_batch, max_len)`` per engine, reused by
@@ -401,7 +497,16 @@ class Engine:
             torch.zeros(leaf.shape[:-4] + (npp,) + leaf.shape[-2:],
                         dtype=leaf.dtype, device=self.device)
             for leaf in template["self"])
-        self._fixed = {k: v for k, v in template.items() if k != "self"}
+        self._fixed = self._place_cache(
+            {k: v for k, v in template.items() if k != "self"})
+        if self.mesh is not None:
+            # no batch dim: KV heads on the tensor axis where they divide
+            self._pools = tuple(sh.distribute(pool, self.mesh,
+                                              sh.placements_for(
+                                                  self.mesh, sh.pool_spec(
+                                                      self.mesh, self.rules,
+                                                      pool.shape)))
+                                for pool in self._pools)
         self._cur = torch.zeros(self.cfg.max_batch, dtype=torch.int32,
                                 device=self.device)
         if self.cfg.prefix_cache:
@@ -425,7 +530,10 @@ class Engine:
         new = {k: filled[k] for k in self._fixed}
         for (dst, bd), (src, _) in zip(_fixed_leaves(self._fixed),
                                        _fixed_leaves(new)):
-            dst.index_copy_(bd, slots, src.index_select(bd, slots))
+            if self.mesh is None:
+                dst.index_copy_(bd, slots, src.index_select(bd, slots))
+            else:
+                dops.copy_rows(dst, src, bd, slots.tolist())
 
     def _batch_extras(self, batch, reqs: List[_Request], extra_inputs):
         """Put each request's rows of ``extra_inputs`` (indexed by
@@ -444,12 +552,14 @@ class Engine:
     def _slice_fixed_row(self, slot: int) -> List[torch.Tensor]:
         """Snapshot one slot's rows of every fixed cache leaf: the per-row
         state a full prefix hit restores (empty for the dense family)."""
-        return [row.clone() for row in _fixed_rows(self._fixed, slot)]
+        return [None if row is None else row.clone()
+                for row in _fixed_rows(self._fixed, slot)]
 
     def _restore_fixed_row(self, snap: List[torch.Tensor], slot: int) -> None:
         """Write a :meth:`_slice_fixed_row` snapshot back into ``slot``."""
         for row, saved in zip(_fixed_rows(self._fixed, slot), snap):
-            row.copy_(saved)
+            if row is not None:
+                row.copy_(saved)
 
     # -- request queue ----------------------------------------------------------
     def submit(self, request: api.Request,
@@ -512,7 +622,8 @@ class Engine:
         self._gen.manual_seed(self.cfg.seed)
         # no_grad and the execution context are thread-local: entered here,
         # they cover a Server's worker
-        with torch.no_grad(), execution_context(hardware=self.hardware):
+        with torch.no_grad(), execution_context(hardware=self.hardware), \
+                self._on_mesh():
             if self._scheduler == "continuous":
                 drained = self._run_continuous(extra_inputs)
             else:
@@ -525,6 +636,13 @@ class Engine:
                     self._run_wave(wave, extra_inputs)
                     drained.extend(wave)
         return [r.result for r in sorted(drained, key=lambda r: r.rid)]
+
+    def _on_mesh(self):
+        """The model calls' activation policy on the mesh (nothing
+        without one)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return dctx.activation_policy(self.mesh, self.rules)
 
     def _poll_ingest(self) -> None:
         """Pull server-mode requests in at a scheduling boundary (no-op
@@ -671,7 +789,9 @@ class Engine:
         self._record_prefill_flash_tiles(plen)
         t0 = time.perf_counter()
         with annotate("serve.prefill_wave"):
-            logits0, cache = self.model.prefill(self.params, batch, cache)
+            logits0, cache = self.model.prefill(self.params,
+                                                self._place(batch), cache)
+            logits0 = sh.full(logits0)
             self._sync_if_profiling()
         t1 = time.perf_counter()
         with annotate("serve.decode_wave"):
@@ -855,10 +975,12 @@ class Engine:
         self._record_prefill_flash_tiles(plen)
         t0 = time.perf_counter()
         with annotate("serve.prefill_admit"):
-            logits0, filled = self.model.prefill(self.params, batch, scratch)
+            logits0, filled = self.model.prefill(self.params,
+                                                 self._place(batch), scratch)
+            logits0 = sh.full(logits0)
             dest_t = torch.from_numpy(dest)
             for pool, src in zip(self._pools, filled["self"]):
-                paged_scatter(pool, dest_t, src)
+                self._scatter_pool(pool, dest_t, src)
             slots = torch.tensor([r.slot for r in admitted],
                                  dtype=torch.long, device=self.device)
             if self._fixed:
@@ -890,7 +1012,9 @@ class Engine:
                 if entry.tail_page is not None:
                     dst = row.pages[len(req.prompt) // page]
                     for pool in self._pools:
-                        paged_copy(pool, entry.tail_page, dst, page)
+                        paged_copy(pool if self.mesh is None
+                                   else pool.to_local(),
+                                   entry.tail_page, dst, page)
                 if self._fixed:
                     self._restore_fixed_row(entry.fixed, row.slot)
                 # noise for all max_batch rows, this row's taken
@@ -923,7 +1047,7 @@ class Engine:
             kv_start = dev[:, width].to(torch.int32)
             budget = dev[:, width + 1].to(torch.int32)
             cache = dict(self._fixed)
-            cache["self"] = tuple(paged_gather(pool, gidx)
+            cache["self"] = tuple(self._gather_pool(pool, gidx)
                                   for pool in self._pools)
             cur = self._cur
             done = budget <= 0                  # empty slots start finished
@@ -948,8 +1072,8 @@ class Engine:
                 offset += 1
             sidx_t = torch.from_numpy(sidx)
             for pool, leaf in zip(self._pools, cache["self"]):
-                paged_scatter(pool, sidx_t, leaf.narrow(leaf.ndim - 3,
-                                                        width - chunk, chunk))
+                self._scatter_pool(pool, sidx_t, leaf.narrow(
+                    leaf.ndim - 3, width - chunk, chunk))
             # the fixed leaves the chunk's last step returned (the hybrid's
             # SSM and conv states move on every token), as the reference's
             # chunk returns its new fixed tree
@@ -984,6 +1108,11 @@ class Engine:
         out["schema_version"] = SCHEMA_VERSION
         out["hardware"] = self.hardware
         out["hardware_platform"] = self._platform
+        out["mesh"] = describe_mesh(self.mesh)
+        out["sharding"] = None if self.mesh is None else {
+            "rules": self.rules.describe(),
+            "params": sh.sharding_summary(self.mesh, self.rules,
+                                          self.model.template)}
         out["device"] = str(self.device)
         out["prefill_plen_buckets"] = sorted(self._plen_buckets)
         out["scheduler"] = self._scheduler

@@ -22,6 +22,14 @@ to work continuously (MaxText's ``OfflineInference``/``JetThread`` shape):
 Requests served through a Server cannot carry ``Request.row`` (an index
 into per-drain input arrays), which contradicts open-ended ingestion.
 
+On a multi-rank mesh every rank's engine must admit the same arrivals at
+the same boundary.  Rank 0 owns the Server; every other rank runs
+:func:`follow` on its engine.  Rank 0's worker broadcasts (over the
+default process group) the start of each drain, each boundary's arrivals
+(prompt, token budget and temperature; streams and handles stay on rank
+0) and the shutdown; the followers' engines submit the same requests and
+so make the same scheduling decisions, chunk for chunk.
+
 Example::
 
     with Server(engine) as srv:
@@ -35,7 +43,42 @@ import queue
 import threading
 from typing import Dict, List, Optional, Tuple
 
+import torch.distributed as dist
+
 from repro_torch.serve import api
+
+#: rank 0's control messages to the followers
+_DRAIN, _STOP = "drain", "stop"
+
+
+def _broadcast(obj=None):
+    """Rank 0's ``obj`` on every rank of the default process group."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _wire(req: api.Request) -> tuple:
+    """What a follower needs of a request: no stream, no handle."""
+    return (list(req.prompt), int(req.max_new_tokens), req.temperature)
+
+
+def follow(engine) -> int:
+    """Mirror rank 0's :class:`Server` on this rank of a multi-rank mesh
+    until it stops: run a drain of ``engine`` whenever rank 0 does,
+    admitting the arrivals rank 0 broadcasts at each boundary.  Returns
+    the requests served (their results stay on rank 0)."""
+    def ingest():
+        return [(api.Request(prompt=p, max_new_tokens=n, temperature=t),
+                 api.RequestHandle()) for p, n, t in _broadcast()]
+    engine._ingest_hook = ingest
+    served = 0
+    try:
+        while _broadcast() == _DRAIN:
+            served += len(engine.run())
+    finally:
+        engine._ingest_hook = None
+    return served
 
 
 class Server:
@@ -49,6 +92,12 @@ class Server:
     """
 
     def __init__(self, engine, poll_timeout_s: float = 0.05):
+        mesh = getattr(engine, "mesh", None)
+        #: a multi-rank mesh: the worker keeps the followers in step
+        self._leads = mesh is not None and mesh.size() > 1
+        if self._leads and dist.get_rank() != 0:
+            raise RuntimeError("on a multi-rank mesh rank 0 owns the Server; "
+                               "every other rank runs serve.server.follow")
         self.engine = engine
         self.poll_timeout_s = float(poll_timeout_s)
         self._ingest: "queue.Queue[Tuple[api.Request, api.RequestHandle]]" \
@@ -114,7 +163,14 @@ class Server:
     # -- worker thread ---------------------------------------------------
     def _poll_ingest(self) -> List[Tuple[api.Request, api.RequestHandle]]:
         """Engine callback at each chunk/wave boundary: everything queued
-        since the last boundary joins the live batch."""
+        since the last boundary joins the live batch (and, on a multi-rank
+        mesh, every follower's)."""
+        items = self._take_pending()
+        if self._leads:
+            _broadcast([_wire(req) for req, _ in items])
+        return items
+
+    def _take_pending(self) -> List[Tuple[api.Request, api.RequestHandle]]:
         items = []
         while True:
             try:
@@ -126,12 +182,16 @@ class Server:
         while True:
             if self._ingest.empty():
                 if self._stop.is_set():
+                    if self._leads:
+                        _broadcast(_STOP)
                     return
                 try:
                     item = self._ingest.get(timeout=self.poll_timeout_s)
                 except queue.Empty:
                     continue
                 self._ingest.put(item)      # run()'s ingest poll takes it
+            if self._leads:
+                _broadcast(_DRAIN)
             try:
                 results = self.engine.run()
             except Exception as exc:
@@ -146,7 +206,7 @@ class Server:
                 self._served += len(results)
 
     def _drop_pending(self, exc: BaseException) -> None:
-        for _, handle in self._poll_ingest():
+        for _, handle in self._take_pending():
             if not handle.done:
                 handle._set_error(exc)
 

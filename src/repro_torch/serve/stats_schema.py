@@ -114,13 +114,18 @@ STATS_SCHEMA: Dict[str, StatKey] = {
     "prefix_cache": StatKey("prefix_cache", ALWAYS,
                             "prefix-cache counters (PREFIX_CACHE_KEYS "
                             "sub-schema; enabled=False zeros when off)"),
-    # -- hardware --------------------------------------------------------
+    # -- hardware / mesh -------------------------------------------------
     "hardware": StatKey("hardware", ALWAYS,
                         "resolved hardware profile name (core.hardware: "
                         "'h100', 'cpu', ...)"),
     "hardware_platform": StatKey("hardware", ALWAYS,
                                  "profile's platform (gpu/cpu; 'unknown' "
                                  "for an unregistered name)"),
+    "mesh": StatKey("hardware", ALWAYS,
+                    "device-mesh description (launch.mesh.describe_mesh)"),
+    "sharding": StatKey("hardware", ALWAYS,
+                        "sharding rules + param-spec histogram "
+                        "(None single-device)"),
     "device": StatKey("hardware", ALWAYS, "torch device the engine runs on"),
     # -- tuning provenance ----------------------------------------------
     "prefill_plen_buckets": StatKey("tuning", ALWAYS,
@@ -140,9 +145,8 @@ STATS_SCHEMA: Dict[str, StatKey] = {
 }
 
 #: the JAX package's keys with no counterpart in the port: the fused
-#: decode loop's unroll (the port has no such loop) and the mesh and
-#: sharding (the distribution layer, ROADMAP queue 1)
-NOT_PORTED_KEYS = ("mesh", "sharding", "decode_unroll", "decode_unroll_source")
+#: decode loop's unroll (the port has no such loop)
+NOT_PORTED_KEYS = ("decode_unroll", "decode_unroll_source")
 
 #: the port's own keys (not in the JAX schema)
 PORT_KEYS = ("device", "kernel_launches")

@@ -11,20 +11,35 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import matmul
+from repro_torch.distributed import ops as dops
+from repro_torch.distributed.ctx import constrain
 
 Z_LOSS_WEIGHT = 1e-4
 MOE_AUX_WEIGHT = 1e-2
 
 
-def _ce_block(x, w, labels):
-    """x: (B, C, D) final-normed hidden; w: (D, V); labels: (B, C).
-    -> (sum of CE, sum of squared log-partition)."""
-    logits = matmul(x, w.to(x.dtype), out_dtype=torch.float32)
+def _lse_picked(logits, labels):
+    """(log-partition, the label's logit), each (B, C)."""
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse, picked
+
+
+def _ce_block(x, w, labels):
+    """x: (B, C, D) final-normed hidden; w: (D, V); labels: (B, C).
+    -> (sum of CE, sum of squared log-partition).  On a mesh each rank
+    reads its batch rows' logits over the whole vocab."""
+    logits = constrain(matmul(x, w.to(x.dtype), out_dtype=torch.float32),
+                       "logits")
+    if isinstance(logits, DTensor):
+        lse, picked = dops.batch_local(_lse_picked, [logits, labels], [0, 0],
+                                       (0, 0))
+    else:
+        lse, picked = _lse_picked(logits, labels)
     return (lse - picked).sum(), lse.square().sum()
 
 

@@ -11,13 +11,17 @@ family trains; a vlm or audio batch carries its extra inputs
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core.device import DeviceLike
+from repro_torch.distributed import ctx as dctx
+from repro_torch.distributed import sharding as sh
 from repro_torch.models.model import Model
 from repro_torch.models.params import map_tree, map_trees, tree_leaves
 from repro_torch.optim import compression as comp
@@ -35,13 +39,49 @@ class TrainState(NamedTuple):
 
 def init_train_state(model: Model, optimizer: AdamW, seed: int = 0,
                      use_compression: bool = False,
-                     device: DeviceLike = None) -> TrainState:
-    params = model.init(seed, device=device)
+                     device: DeviceLike = None, mesh=None,
+                     rules=None) -> TrainState:
+    """A fresh state; with ``mesh`` (else the ambient one) every leaf is
+    made on the mesh, leaf by leaf, placed by :func:`state_shardings`."""
+    params = model.init(seed, device=device, mesh=mesh, rules=rules)
+    leaf = tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    if isinstance(leaf, DTensor):
+        step = sh.distribute(step, leaf.device_mesh,
+                             (Replicate(),) * leaf.device_mesh.ndim)
     return TrainState(
-        step=torch.zeros((), dtype=torch.int32,
-                         device=tree_leaves(params)[0].device),
-        params=params, opt=optimizer.init(params),
+        step=step, params=params, opt=optimizer.init(params),
         compression=comp.init_state(params) if use_compression else None)
+
+
+def state_shardings(mesh, rules, model: Model,
+                    use_compression: bool = False) -> TrainState:
+    """The :class:`~repro_torch.distributed.sharding.Layout` of every leaf
+    of a train state: params, the AdamW moments and masters and the
+    compression residual by the rules (FSDP under ``rules_for_mesh``'s
+    default), step and count replicated."""
+    ps = sh.param_placements(mesh, rules, model.template)
+    rep = sh.Layout.of(mesh, ())
+    return TrainState(
+        step=rep, params=ps,
+        opt=AdamWState(count=rep, m=ps, v=ps, master=ps),
+        compression=comp.CompressionState(residual=ps) if use_compression
+        else None)
+
+
+def place_state(state: TrainState, layouts: TrainState) -> TrainState:
+    """``state`` with every leaf on its layout (a no-op for leaves already
+    there; a plain or differently placed state is re-sharded)."""
+    def tree(x, lay):
+        return None if x is None else sh.distribute_tree(x, lay)
+    return TrainState(
+        step=tree(state.step, layouts.step),
+        params=tree(state.params, layouts.params),
+        opt=AdamWState(*(tree(getattr(state.opt, f), getattr(layouts.opt, f))
+                         for f in AdamWState._fields)),
+        compression=None if state.compression is None else
+        comp.CompressionState(residual=tree(state.compression.residual,
+                                            layouts.compression.residual)))
 
 
 def abstract_train_state(model: Model, optimizer: AdamW,
@@ -149,15 +189,31 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Runs the train step over ``data_iter(step)`` (a ``TokenPipeline``)."""
+    """Runs the train step over ``data_iter(step)`` (a ``TokenPipeline``).
+
+    With ``mesh`` (else the ambient ``distributed.use_mesh`` one) the state
+    is placed by :func:`state_shardings` under ``rules`` (default
+    ``rules_for_mesh(mesh)``: FSDP over ``data``, tensor parallel over
+    ``model``), each batch is split over the data axes, and the step runs
+    under the activation policy."""
 
     def __init__(self, model: Model, optimizer: AdamW, data_iter,
-                 cfg: TrainerConfig, checkpointer=None):
+                 cfg: TrainerConfig, checkpointer=None, mesh=None,
+                 rules=None):
         self.model = model
         self.optimizer = optimizer
         self.data_iter = data_iter
         self.cfg = cfg
         self.checkpointer = checkpointer
+        if mesh is None:
+            mesh, rules = dctx.current_mesh(), rules or dctx.current_rules()
+        self.mesh = mesh
+        self.rules = None
+        self.layouts = None
+        if mesh is not None:
+            self.rules = rules or sh.rules_for_mesh(mesh)
+            self.layouts = state_shardings(mesh, self.rules, model,
+                                           cfg.use_compression)
         self._step = make_train_step(model, optimizer,
                                      microbatches=cfg.microbatches,
                                      use_compression=cfg.use_compression)
@@ -174,10 +230,15 @@ class Trainer:
         checkpoint reads the state back to the host."""
         logged_steps, logged_losses = [], []
         self.step_walls = []
+        if self.mesh is not None:
+            state = place_state(state, self.layouts)
         for step_idx in range(start_step, self.cfg.total_steps):
             batch = self.data_iter(step_idx)
             t0 = time.perf_counter()
-            with annotate("train.step"):
+            with annotate("train.step"), self._on_mesh():
+                if self.mesh is not None:
+                    batch = sh.distribute_tree(batch, sh.batch_shardings(
+                        self.mesh, self.rules, batch))
                 state, metrics = self._step(state, batch)
             if self.cfg.step_deadline_s is not None:
                 if metrics["loss"].is_cuda:
@@ -193,6 +254,12 @@ class Trainer:
             if (self.checkpointer is not None
                     and (step_idx + 1) % self.cfg.checkpoint_every == 0):
                 self.checkpointer.save(step_idx + 1, state)
-        losses = (torch.stack(logged_losses).cpu().tolist()
-                  if logged_losses else [])
+        losses = (torch.stack([sh.full(x) for x in logged_losses]).cpu()
+                  .tolist() if logged_losses else [])
         return state, list(zip(logged_steps, losses))
+
+    def _on_mesh(self):
+        """The step's activation policy on the mesh (nothing without)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return dctx.activation_policy(self.mesh, self.rules)

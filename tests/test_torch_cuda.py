@@ -1107,3 +1107,101 @@ def test_cuda_profiling_trace_names_k1_and_k2(cuda, tmp_path):
     launchers = blob["device_us_by_launching_op"]
     assert "gemm_wgmma_kernel" in launchers, launchers
     assert "flash_fwd_wgmma_kernel" in launchers, launchers
+
+
+@pytest.fixture
+def one_rank_mesh(cuda):
+    """A data=1,model=1 mesh over NCCL (a world of one), torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import build_mesh
+    mesh = build_mesh("data=1,model=1", device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_cuda_one_rank_mesh_serves_the_no_mesh_tokens_and_launches(
+        one_rank_mesh):
+    """Reduced llama3.2-1b in bf16 with flash prefill on a one-rank NCCL
+    mesh: the tokens, K1's and K2's launches by path and the host
+    transfers of the engine with no mesh, and every local shape the
+    global one."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="bfloat16", attention_impl="flash")
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    prompts = [[(5 * i + j) % cfg.vocab_size for j in range(3 + 4 * i)]
+               for i in range(6)]
+    out, paths, st = {}, {}, {}
+    for name, mesh in (("plain", None), ("mesh", one_rank_mesh)):
+        eng = Engine(model, params, ServeConfig(max_batch=4, max_len=128,
+                                                mesh=mesh))
+        kernels.reset_launch_counts()
+        out[name] = eng.generate(prompts, 12)
+        torch.cuda.synchronize()
+        paths[name] = (kernels.gemm_launches_by_path(),
+                       kernels.flash_launches_by_path())
+        st[name] = eng.stats()
+    assert out["mesh"] == out["plain"]
+    assert paths["mesh"] == paths["plain"], paths
+    # head dim 16: K2's fma kernel (wgmma takes 64 and up)
+    assert paths["mesh"][0]["decode"] > 0 and sum(paths["mesh"][1].values())
+    assert st["mesh"]["device_transfers"] == st["mesh"]["chunks"] == \
+        st["plain"]["device_transfers"]
+    assert st["mesh"]["mesh"] == {"devices": 1,
+                                  "axes": {"data": 1, "model": 1},
+                                  "label": "data1xmodel1"}
+    assert all(v["local_shape"] == k for k, v in
+               st["mesh"]["decode_tile_lookups"].items())
+
+
+def test_cuda_one_rank_mesh_train_step_is_bit_equal(one_rank_mesh):
+    """One train step of reduced llama3.2-1b in bf16 under the FSDP rules
+    on a one-rank NCCL mesh: the loss and every gradient leaf bit-equal to
+    the step with no mesh, with the same K1 launches (deterministic
+    algorithms on, as in the dots test above)."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train.trainer import _value_and_grad
+    mesh = one_rank_mesh
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="bfloat16", remat=True)
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                     global_batch=4), device="cuda")(0)
+    rules = sh.rules_for_mesh(mesh)
+    placed = sh.shard_params(params, mesh, rules, model.template)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kernels.reset_launch_counts()
+        loss, _, grads = _value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        plain_paths = kernels.gemm_launches_by_path()
+        kernels.reset_launch_counts()
+        with dctx.activation_policy(mesh, rules):
+            mbatch = sh.distribute_tree(batch, sh.batch_shardings(
+                mesh, rules, batch))
+            mloss, _, mgrads = _value_and_grad(model, placed, mbatch)
+        torch.cuda.synchronize()
+        mesh_paths = kernels.gemm_launches_by_path()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert mesh_paths == plain_paths, (mesh_paths, plain_paths)
+    assert torch.equal(sh.full(mloss), loss)
+    for path, g in tree_paths(grads).items():
+        assert torch.equal(sh.full(tree_paths(mgrads)[path]), g), path

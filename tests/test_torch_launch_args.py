@@ -1,8 +1,9 @@
 """The port's launcher CLI, as ``tests/test_launch_args.py`` holds the
-reference's: one declaration of the shared flags (the reference's less
-``--mesh``, plus ``--device``), the serving argument group with the
-reference's defaults, warn-and-forward semantics for retired flags, and
-``--trace-dir`` on both launchers (a capture of the run, on the CPU here).
+reference's: one declaration of the shared flags (the reference's, plus
+``--device``), the serving argument group with the reference's defaults,
+warn-and-forward semantics for retired flags (train's ``--mesh-data`` /
+``--mesh-model`` onto ``--mesh``), ``--trace-dir`` on both launchers (a
+capture of the run, on the CPU here) and ``--mesh`` under ``torchrun``.
 """
 import argparse
 
@@ -17,8 +18,8 @@ from repro_torch.launch.common import (add_common_args,  # noqa: E402
                                        forward_deprecated)
 from repro_torch.profiling import load_trace_events, summarize_events  # noqa: E402
 
-COMMON_FLAGS = ["--hardware", "--stats", "--tuned-dir", "--trace-dir",
-                "--device"]
+COMMON_FLAGS = ["--hardware", "--mesh", "--stats", "--tuned-dir",
+                "--trace-dir", "--device"]
 SERVING_FLAGS = ["--scheduler", "--page-size", "--capacity-tokens",
                  "--decode-chunk", "--no-prefix-cache"]
 
@@ -34,14 +35,17 @@ def _defaults(add):
 
 
 def test_common_args_are_the_references_less_mesh_plus_device():
+    """The shared surface is the reference's, ``--mesh`` included, plus the
+    port's ``--device``."""
     ap = argparse.ArgumentParser()
     add_common_args(ap)
     ref = argparse.ArgumentParser()
     jax_common.add_common_args(ref)
-    assert _option_strings(ap) == (_option_strings(ref) - {"--mesh"}) | {
-        "--device"}
-    args = ap.parse_args(["--stats", "--trace-dir", "t", "--device", "cpu"])
+    assert _option_strings(ap) == _option_strings(ref) | {"--device"}
+    args = ap.parse_args(["--stats", "--trace-dir", "t", "--device", "cpu",
+                          "--mesh", "data=2,model=2"])
     assert args.stats and args.trace_dir == "t" and args.device == "cpu"
+    assert args.mesh == "data=2,model=2"
     assert args.hardware is None and args.tuned_dir is None
 
 
@@ -128,3 +132,68 @@ def test_launchers_without_trace_dir_write_no_capture(tmp_path, capsys,
           "--steps", "1", "--seq-len", "8", "--batch", "2"])
     assert "[trace]" not in capsys.readouterr().out
     assert list(tmp_path.iterdir()) == []
+
+
+def test_mesh_is_in_the_shared_surface_of_both_launchers():
+    from repro_torch.launch import train
+    ap = argparse.ArgumentParser()
+    add_common_args(ap)
+    assert set(COMMON_FLAGS) <= _option_strings(ap)
+    assert train.parse_args(["--arch", "x", "--mesh", "auto"]).mesh == "auto"
+
+
+def test_train_mesh_data_and_model_forward_onto_mesh(capsys):
+    from repro_torch.launch import train
+    with pytest.warns(DeprecationWarning, match="--mesh-data is deprecated"):
+        args = train.parse_args(["--arch", "x", "--mesh-data", "2",
+                                 "--mesh-model", "2"])
+    assert args.mesh == "data=2,model=2"
+    assert "[deprecated] --mesh-model -> --mesh" in capsys.readouterr().out
+    with pytest.warns(DeprecationWarning):
+        args = train.parse_args(["--arch", "x", "--mesh", "data=4",
+                                 "--mesh-data", "2"])
+    assert args.mesh == "data=4"           # the modern flag wins
+    assert train.parse_args(["--arch", "x"]).mesh is None
+
+
+@pytest.mark.parametrize("server", [False, True])
+def test_serve_launcher_on_a_2x2_mesh_prints_once_and_serves_the_same(
+        tmp_path, server):
+    """``torchrun --standalone --nproc_per_node 4`` of the serve launcher
+    on a data=2,model=2 mesh (gloo on the CPU): the mesh line once, from
+    rank 0, and the tokens of the run without a mesh; with ``--server``,
+    rank 0's Server with the other ranks following it."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    base = ["-m", "repro_torch.launch.serve", "--arch", "llama3.2-1b",
+            "--device", "cpu", "--reduced", "--prompts", "1,2,3;7,8,9;4,4",
+            "--max-new", "6", "--stats"] + (["--server"] if server else [])
+
+    def run(cmd):
+        proc = subprocess.Popen([sys.executable] + cmd, env=env, cwd=tmp_path,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            out, err = proc.communicate()
+        assert proc.returncode == 0, (out + err)[-3000:]
+        return out
+    meshed = run(["-m", "torch.distributed.run", "--standalone",
+                  "--nproc_per_node", "4"] + base
+                 + ["--mesh", "data=2,model=2"])
+    plain = run(base)
+    mesh_lines = [ln for ln in meshed.splitlines() if ln.startswith("[mesh]")]
+    assert mesh_lines == ["[mesh] {'devices': 4, 'axes': {'data': 2, "
+                          "'model': 2}, 'label': 'data2xmodel2'}"]
+    tokens = [ln for ln in meshed.splitlines() if ln.startswith("prompt=")]
+    assert len(tokens) == 3
+    assert tokens == [ln for ln in plain.splitlines()
+                      if ln.startswith("prompt=")]
+    assert meshed.count("[hw] profile=") == 1

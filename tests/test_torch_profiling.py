@@ -152,6 +152,11 @@ def test_a_capture_with_card_activity_but_no_device_event_raises(
      "attention"),
     ("ncclDevKernel_AllReduce_Sum_bf16_RING_LL(ncclDevKernelArgsStorage)",
      "collective"),
+    ("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage)",
+     "collective"),
+    ("c10d::allreduce_", "collective"),
+    ("_c10d_functional::all_gather_into_tensor", "collective"),
+    ("_c10d_functional::wait_tensor", "collective"),
     ("void at::native::vectorized_elementwise_kernel<4, "
      "at::native::CUDAFunctor_add<float>>(int)", "other"),
     ("void at::native::(anonymous namespace)::indexSelectLargeIndex<float>()",
@@ -530,3 +535,33 @@ def test_profile_script_has_the_reference_defaults():
         max_len=256)
     assert {k: train[k] for k in ("steps", "seq_len", "batch")} == dict(
         steps=2, seq_len=32, batch=8)
+
+
+def test_profile_script_on_a_mesh_labels_it_and_counts_collectives(
+        tmp_path):
+    """``serve --mesh data=2,model=2`` under ``torchrun`` (4 gloo ranks on
+    the CPU): rank 0 writes one PROFILE file, valid for both validators,
+    whose ``mesh`` is the mesh's label and whose ``collective`` family
+    holds the c10d ops; the other ranks print nothing."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "4", str(SCRIPT), "serve", "--device", "cpu",
+           "--batch", "4", "--plen", "5", "--max-new", "4", "--mesh",
+           "data=2,model=2", "--out", "m.json"]
+    proc = subprocess.Popen(cmd, cwd=tmp_path, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            env=dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                                     OMP_NUM_THREADS="1"))
+    try:
+        out, err = proc.communicate(timeout=240)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+    assert proc.returncode == 0, (out + err)[-3000:]
+    assert out.count("[profile] wrote m.json") == 1
+    blob = json.loads((tmp_path / "m.json").read_text())
+    validate_profile(blob)
+    jax_profiling.validate_profile(blob)
+    assert blob["mesh"] == "data2xmodel2"
+    assert blob["families"]["collective"]["count"] > 0
+    assert blob["engine"]["chunks"] == blob["engine"]["device_transfers"]

@@ -450,9 +450,9 @@ def test_live_stats_validate_against_schema(scheduler, cache, jax_params,
 def test_schema_is_jax_schema_minus_not_ported_plus_port_keys():
     port = set(stats_schema.STATS_SCHEMA)
     jax_keys = set(jax_schema.STATS_SCHEMA)
-    # the tuning provenance is ported; the unroll and the mesh are not
+    # the tuning provenance and the mesh are ported; the unroll is not
     assert set(stats_schema.NOT_PORTED_KEYS) == {
-        "mesh", "sharding", "decode_unroll", "decode_unroll_source"}
+        "decode_unroll", "decode_unroll_source"}
     assert {"hardware_platform", "decode_tile_lookups",
             "prefill_flash_lookups", "registry_hit_stats",
             "page_size_source"} <= port
