@@ -178,6 +178,18 @@ Phases, each printing one JSON line:
    params saved from the mesh and restored with no mesh, bit for bit.
    The walls of both runs are in its line; the process group is
    destroyed at its end.
+19. ``roofline`` — the dry run (``launch.dryrun``: the step traced once
+   on fake tensors, one device) and its roofline on the ``h100`` profile
+   (``launch.roofline``) for every step an earlier phase traced: the
+   serve phase's prefills and decode steps, at the batch and length each
+   call of its traced serve had (the calls' terms summed), and each train
+   phase's step at its depth and batch.  One line each: the compute,
+   memory and collective terms and the dominant one, the flops by dtype,
+   the measured spans of the trace (``serve.prefill_admit``,
+   ``serve.decode_chunk``, ``train.step``: wall, and device busy from the
+   kernels launched inside them), the share ``est_step_s / measured`` of
+   each, the MFU proxy, and the dry run's peak-memory estimate beside the
+   phase's measured ``peak_mem_gb``.
 
 The kernels phase also holds whisper's shapes (d 1280 projections with
 biases and the GELU MLP at M = 8, 8 x 256 and the encoder's 8 x 1500, the
@@ -305,6 +317,51 @@ def profile_summary(kind: str, events, top: int = 12):
                     "families": sorted({classify_event_name(e["name"])
                                         for e in mine})}
     return blob, out
+
+
+def span_times(events, name: str):
+    """(spans, wall ms, device-busy ms) of the ``annotate(name)`` spans of
+    a capture on the card.  Busy is the device time of the kernels, copies
+    and sets launched inside the spans (each joined to its CUDA runtime or
+    driver call through the correlation id); a span's wall runs from its
+    start to the end of its host window or of the last device event it
+    launched, whichever is later (the host may finish issuing a step
+    before the device finishes running it)."""
+    import bisect
+
+    from repro_torch.profiling.breakdown import DEVICE_CATEGORIES
+    spans = sorted([float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))]
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation"
+                   and e.get("name") == name)
+    launched = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime",
+                                                    "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                launched[corr] = float(e["ts"])
+    starts = [a for a, _ in spans]
+    ends = [b for _, b in spans]
+    busy = 0.0
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
+            continue
+        ts = launched.get((e.get("args") or {}).get("correlation"))
+        i = -1 if ts is None else bisect.bisect_right(starts, ts) - 1
+        if i >= 0 and ts <= spans[i][1]:
+            dur = float(e.get("dur", 0.0))
+            busy += dur
+            ends[i] = max(ends[i], float(e["ts"]) + dur)
+    wall = sum(b - a for a, b in zip(starts, ends))
+    return len(spans), wall / 1e3, busy / 1e3
+
+
+#: the traced steps the ``roofline`` phase bounds: each a dict of its
+#: ``label``, config, step ``kind``, ``calls`` ({(batch, length): count}
+#: of the step the traced run made), its measured ``span_times`` and the
+#: phase's measured peak memory (GB)
+MEASURED_STEPS: list = []
 
 
 # ---------------------------------------------------------------------------
@@ -950,12 +1007,14 @@ def phase_tuning(torch):
 
 def phase_serve(torch):
     import dataclasses
+    from unittest import mock
 
     import numpy as np
 
     from repro_torch import kernels
     from repro_torch.configs.catalog import get_config
     from repro_torch.models import build_model
+    from repro_torch.models.model import Model
     from repro_torch.serve import Engine, ServeConfig, generate_per_prompt
     from repro_torch.serve.engine import _bucket_len
 
@@ -1031,10 +1090,31 @@ def phase_serve(torch):
     # serve.decode_chunk marker and one device-to-host copy a chunk
     eng.clear_prefix_cache()
     before = eng.stats()
-    outs_traced, events, secs = traced(
-        "serve", lambda: eng.generate(prompts, max_new))
+    calls = {"prefill": {}, "decode": {}}
+    real_prefill, real_decode = Model.prefill, Model.decode_step
+
+    def note(kind, key):
+        calls[kind][key] = calls[kind].get(key, 0) + 1
+
+    def prefill_noted(self, params_, batch, cache):
+        note("prefill", tuple(batch["tokens"].shape))
+        return real_prefill(self, params_, batch, cache)
+
+    def decode_noted(self, params_, tokens, cache, offset, kv_start=None):
+        note("decode", (tokens.shape[0], cache["self"][0].shape[-3]))
+        return real_decode(self, params_, tokens, cache, offset, kv_start)
+    with mock.patch.object(Model, "prefill", prefill_noted), \
+            mock.patch.object(Model, "decode_step", decode_noted):
+        outs_traced, events, secs = traced(
+            "serve", lambda: eng.generate(prompts, max_new))
     st2 = eng.stats()
     _, prof = profile_summary("serving", events)
+    for kind, span in (("prefill", "serve.prefill_admit"),
+                       ("decode", "serve.decode_chunk")):
+        MEASURED_STEPS.append({
+            "label": f"serve_{kind}", "cfg": cfg, "kind": kind,
+            "calls": calls[kind], "measured": span_times(events, span),
+            "peak_mem_gb": serve["peak_mem_gb"]})
     del events
     prof.update(secs)
     prof.update({k: st2[k] - before[k] for k in (
@@ -2303,6 +2383,11 @@ def phase_train(torch, ctx, phase: str = "train"):
                     step(state, batch2)
             _, events, secs = traced(phase, traced_step)
             _, prof = profile_summary("training", events)
+            MEASURED_STEPS.append({
+                "label": phase, "cfg": cfg, "kind": "train",
+                "calls": {(b, s): 1},
+                "measured": span_times(events, "train.step"),
+                "peak_mem_gb": out["peak_mem_gb"]})
             del events
             prof.update(secs)
             emit(dict({"phase": "train_profile", "train_phase": phase,
@@ -2673,6 +2758,81 @@ def phase_mesh(torch, serve_outs, families):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase: roofline
+# ---------------------------------------------------------------------------
+
+#: the roofline terms a phase line sums over the calls of a step
+ROOF_TERMS = ("compute_s", "memory_s", "collective_s", "est_step_s",
+              "compute_bf16_peak_s", "model_flops")
+
+
+def phase_roofline(torch):
+    """The dry run's roofline (``launch.dryrun.cell_record`` on one device,
+    fake tensors; ``launch.roofline.roofline_row`` on the ``h100``
+    profile) of every traced step of the earlier phases
+    (``MEASURED_STEPS``): the serve phase's prefills and decode steps at
+    the shapes the traced serve ran them, each train phase's step at its
+    depth and batch.  Each line has the terms summed over the step's calls,
+    the dominant one, the measured spans (wall and device busy), the
+    share ``est_step_s / measured`` of each, the MFU proxy, and the dry
+    run's peak-memory estimate beside the phase's measured peak.  Nothing
+    here is caught."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.hardware import H100
+    from repro_torch.launch.dryrun import cell_record
+    from repro_torch.launch.roofline import roofline_row
+
+    t_phase = time.perf_counter()
+    card, smi_line = torch.cuda.get_device_name(0), smi()
+    peak = H100.peak_flops["bfloat16"]
+    assert MEASURED_STEPS, "no traced step to bound"
+    for st in MEASURED_STEPS:
+        t0 = time.perf_counter()
+        sums = dict.fromkeys(ROOF_TERMS, 0.0)
+        by_dtype, flash, peak_bytes, shapes = {}, 0.0, 0, []
+        for (b, length), n in sorted(st["calls"].items()):
+            rec = cell_record(st["cfg"], ShapeSpec(st["label"], length, b,
+                                                   st["kind"]))
+            row = roofline_row(rec, H100)
+            for k in ROOF_TERMS:
+                sums[k] += n * row[k]
+            for dt, f in rec["step_stats"]["flops_by_dtype"].items():
+                by_dtype[dt] = by_dtype.get(dt, 0.0) + n * f
+            flash += n * rec["step_stats"]["flash_flops"]
+            peak_bytes = max(peak_bytes, rec["memory"]["peak_bytes"])
+            shapes.append({"batch": b, "length": length, "calls": n,
+                           "est_step_s": row["est_step_s"],
+                           "dominant": row["dominant"]})
+        terms = {k: sums[f"{k}_s"] for k in ("compute", "memory",
+                                             "collective")}
+        spans, wall_ms, busy_ms = st["measured"]
+        est = sums["est_step_s"]
+        line = {
+            "phase": "roofline", "step": st["label"], "card": card,
+            "nvidia_smi": smi_line, "hardware": H100.name,
+            "model": st["cfg"].name, "kind": st["kind"],
+            "layers": st["cfg"].num_layers, "shapes": shapes,
+            **{k: sums[k] for k in ROOF_TERMS},
+            "dominant": max(terms, key=terms.get),
+            "flops_by_dtype": by_dtype, "flash_flops": flash,
+            "measured": {"spans": spans, "wall_s": wall_ms / 1e3,
+                         "device_busy_s": busy_ms / 1e3},
+            "share_of_wall": est / (wall_ms / 1e3),
+            "share_of_device_busy": est / (busy_ms / 1e3),
+            "mfu_proxy": sums["model_flops"] / est / peak,
+            "mfu_measured_wall": sums["model_flops"] / (wall_ms / 1e3) / peak,
+            "dryrun_peak_gb": peak_bytes / 1e9,
+            "measured_peak_mem_gb": st["peak_mem_gb"],
+            "seconds": time.perf_counter() - t0}
+        assert spans > 0 and wall_ms > 0 and busy_ms > 0, line
+        assert est > 0 and math.isfinite(est) and peak_bytes > 0, line
+        assert sum(by_dtype.values()) > 0, line
+        emit(line)
+    emit({"phase": "roofline_done", "steps": len(MEASURED_STEPS),
+          "seconds": time.perf_counter() - t_phase})
+
+
 def _sums(mine):
     t_ops = sum(r["bound_ms"] for r in mine if r["bound_by"] == "operations")
     t_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
@@ -2768,6 +2928,7 @@ def main(argv=None) -> int:
                 phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx)]
     families += [phase_train(torch, ctx, p) for p in TRAIN_PHASES]
     families += phase_mesh(torch, serve_outs, families)
+    phase_roofline(torch)
     print(card, flush=True)
     emit({"kernels": summarize(rows, launches, paths, features, families)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

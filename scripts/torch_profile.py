@@ -27,8 +27,14 @@ under ``torchrun --standalone --nproc_per_node N*M``; a world of one runs
 alone), writes the mesh's label (``data1xmodel1``) as the blob's ``mesh``,
 and counts the collectives (NCCL kernels on the card, the ``c10d::`` ops
 on the CPU) in the ``collective`` family; rank 0 writes and prints.
-There is no roofline beside the breakdown: the port's roofline is not
-ported.
+
+Beside the breakdown stands the roofline of the step profiled (the
+blob's ``roofline``, printed as ``[roofline]``): the same batch, length
+and mesh traced once on fake tensors (``launch.dryrun.cell_record``), its
+counts over the hardware profile's peaks (``launch.roofline``).  For
+``serve`` that step is one decode step over the engine's ``--max-len``
+cache, for ``train`` one train step, as the reference's
+``scripts/profile.py`` bounds them.
 """
 from __future__ import annotations
 
@@ -75,9 +81,39 @@ def render(blob: dict) -> None:
         ops = ", ".join(f"{o}={_fmt_us(us)}"
                         for o, us in list(launchers.items())[:6])
         print(f"[profile] by launching op: {ops}")
-    if "roofline" not in blob:
-        print("[roofline] not ported: the breakdown has no analytic bound "
-              "beside it")
+    r = blob.get("roofline")
+    if r:
+        print(f"[roofline] analytic bounds on {r['hardware']} "
+              f"({r['chips']} chip(s)): compute {r['compute_s']*1e6:.1f}us | "
+              f"memory {r['memory_s']*1e6:.1f}us | "
+              f"collective {r['collective_s']*1e6:.1f}us "
+              f"-> dominant: {r['dominant']} (est. step "
+              f"{r['est_step_s']*1e6:.1f}us, MFU proxy "
+              f"{r['mfu_proxy']*100:.1f}%)")
+        terms = {"compute": r["compute_s"], "memory": r["memory_s"],
+                 "collective": r["collective_s"]}
+        total = sum(terms.values()) or 1.0
+        meas_coll = fams["collective"]["fraction"]
+        print(f"[compare] collective share: measured {meas_coll*100:.1f}% "
+              f"vs roofline {terms['collective']/total*100:.1f}%")
+
+
+def _roofline(cfg, kind: str, batch: int, seq_len: int, mesh, rules,
+              hardware: str):
+    """The roofline row of one ``kind`` step of ``batch`` x ``seq_len``
+    on ``mesh``, traced on fake tensors; None (with the reason printed)
+    where it cannot be had: the roofline is advisory, never fatal."""
+    try:
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.core.hardware import get_profile
+        from repro_torch.launch.dryrun import cell_record
+        from repro_torch.launch.roofline import roofline_row
+        rec = cell_record(cfg, ShapeSpec(kind, seq_len, batch, kind), mesh,
+                          rules)
+        return roofline_row(rec, get_profile(hardware))
+    except Exception as e:
+        print(f"[roofline] skipped: {type(e).__name__}: {e}")
+        return None
 
 
 def _write(blob: dict, out: str) -> None:
@@ -125,8 +161,8 @@ def cmd_serve(args) -> None:
     from repro_torch.launch.mesh import mesh_axis_label
 
     cfg, model, hardware, device, mesh = _setup(args)
-    params = model.init(0, device=device, mesh=mesh,
-                        rules=mesh and rules_for_mesh(mesh, fsdp=False))
+    rules = mesh and rules_for_mesh(mesh, fsdp=False)
+    params = model.init(0, device=device, mesh=mesh, rules=rules)
     prompts = [[(7 * i + j) % cfg.vocab_size for j in range(args.plen)]
                for i in range(args.batch)]
     extra = _extras(torch, model, args.batch, 0, device) or None
@@ -145,9 +181,11 @@ def cmd_serve(args) -> None:
     delta = {k: st[k] - before[k] for k in (
         "tokens_generated", "decode_seconds", "device_transfers", "waves",
         "chunks")}
+    roof = _roofline(cfg, "decode", args.batch, args.max_len, mesh, rules,
+                     hardware)
     blob = build_profile(
         "serving", trace_dir=trace_dir, hardware=hardware,
-        mesh=mesh_axis_label(mesh),
+        mesh=mesh_axis_label(mesh), roofline=roof,
         extra={"engine": dict(
             delta, scheduler=st["scheduler"],
             decode_tok_s=(delta["tokens_generated"] / delta["decode_seconds"]
@@ -193,8 +231,10 @@ def cmd_train(args) -> None:
     with trace(trace_dir):
         state, _ = trainer.run(state, start_step=1)
         float(full(state.step))
+    roof = _roofline(cfg, "train", args.batch, args.seq_len, mesh,
+                     trainer.rules, hardware)
     blob = build_profile("training", trace_dir=trace_dir, hardware=hardware,
-                         mesh=mesh_axis_label(mesh),
+                         mesh=mesh_axis_label(mesh), roofline=roof,
                          extra={"steps_traced": args.steps})
     _write(blob, args.out)
     render(blob)

@@ -66,5 +66,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.shape[1], k.shape[1], q.shape[3]).config
         if bq is not None or bk is not None:
             cfg = dataclasses.replace(cfg, bq=bq or cfg.bq, bk=bk or cfg.bk)
+    counter = _ctx().counter
+    if counter is not None:
+        return counter.unit(
+            lambda: fa_kernel.flash_attention(q, k, v, config=cfg,
+                                              causal=causal,
+                                              kv_start=kv_start),
+            "repro_torch.flash_attention", q.dtype, (q, k, v, kv_start),
+            flash=(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                   q.shape[3], causal))
     return fa_kernel.flash_attention(q, k, v, config=cfg, causal=causal,
                                      kv_start=kv_start)

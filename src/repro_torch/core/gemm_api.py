@@ -45,6 +45,9 @@ class ExecutionContext:
     #: every product on sharded operands, as ((m, k, n) global, (m, k, n)
     #: of this rank's local product) (the serve engine's tile provenance)
     sharded: Optional[list] = None
+    #: the dry run's op counter (``launch.step_stats.count_step``): each K1
+    #: product, two-operand einsum and K2 call is counted as one unit
+    counter: Optional[object] = None
 
 
 _TLS = threading.local()
@@ -115,6 +118,13 @@ def _product(a: torch.Tensor, b: torch.Tensor, *, hardware: Optional[str],
         config = GLOBAL_REGISTRY.lookup_op(
             OP_GEMM, hardware or launch_hardware(a.get_device()),
             a.dtype, (m, k, n)).config
+    counter = _ctx().counter
+    if counter is not None:
+        return counter.unit(
+            lambda: ops.gemm(a, b, config=config, bias=bias,
+                             activation=activation, out_dtype=out_dtype),
+            "repro_torch.gemm", torch.promote_types(a.dtype, b.dtype),
+            (a, b, bias))
     return ops.gemm(a, b, config=config, bias=bias, activation=activation,
                     out_dtype=out_dtype)
 
@@ -277,6 +287,16 @@ def einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
     if len(operands) == 2 and any(isinstance(o, DTensor) for o in operands):
         from repro_torch.distributed import ops as dops
         return dops.einsum(subscripts, *operands, local_einsum=einsum)
+    counter = _ctx().counter
+    if counter is not None:
+        return counter.unit(lambda: _einsum(subscripts, *operands),
+                            "repro_torch.einsum", functools.reduce(
+                                torch.promote_types,
+                                [o.dtype for o in operands]), operands)
+    return _einsum(subscripts, *operands)
+
+
+def _einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
     if (len(operands) == 2 and operands[0].is_cuda
             and all(o.dtype == torch.bfloat16 for o in operands)):
         return contract_f32(subscripts, *operands,

@@ -10,7 +10,8 @@ Two profiles are registered:
 
 * ``h100`` (platform ``gpu``): the NVIDIA H100 SXM data sheet (989 TFLOP/s
   dense bf16, 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM, 80
-  GiB, 227 KiB of shared memory a block, 132 SMs).  Its default tier is
+  GiB, 227 KiB of shared memory a block, 132 SMs, NVLink 4 at 50 GB/s a
+  link).  Its default tier is
   the hand-set tables of ``core.tile_config`` (``gemm_tiles``,
   ``flash_tiles``), so with no tuned entry a launch takes exactly the
   schedule those tables give.
@@ -65,6 +66,10 @@ class HardwareProfile:
     smem_bytes: int               # shared memory one block may use
     sm_count: int
     platform: str
+    #: bytes/s of one inter-device link, the reference's
+    #: ``ici_link_bandwidth``: the roofline's collective term divides each
+    #: device's ring link bytes by it
+    link_bandwidth: float = 0.0
     mxu_dim: int = 64
     sublane: int = 8
     #: substring of ``torch.cuda.get_device_name()`` that detects this card
@@ -97,6 +102,9 @@ H100 = HardwareProfile(
     hbm_bytes=80 * 1024 ** 3,
     smem_bytes=227 * 1024,
     sm_count=132,
+    # NVLink 4 (H100 SXM data sheet): 900 GB/s over 18 links, 50 GB/s a
+    # link (both directions), as the reference's gpu profile counts NVLink
+    link_bandwidth=900e9 / 18,
     device_match="H100",
     defaults=tc.hand_config,
 )
@@ -111,6 +119,7 @@ CPU = HardwareProfile(
     hbm_bytes=8 * 1024 ** 3,
     smem_bytes=32 * 1024 ** 2,
     sm_count=1,
+    link_bandwidth=10e9,
     mxu_dim=16,
     sublane=1,
 )

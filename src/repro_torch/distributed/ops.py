@@ -99,6 +99,24 @@ def _reduced(placements) -> List:
     return [Replicate() if p.is_partial() else p for p in placements]
 
 
+def unflatten(t, dim: int, sizes) -> torch.Tensor:
+    """``t.unflatten(dim, sizes)``.  DTensor keeps a split of ``dim`` only
+    on the leading factor ``sizes[0]``, and only when the mesh dims that
+    split ``dim`` divide it evenly: a projection's heads (8 KV heads on a
+    16-way ``model`` axis) are gathered over those mesh dims first, as the
+    reference's compiler reshards them."""
+    if isinstance(t, DTensor):
+        d = dim % t.dim()
+        mesh = t.device_mesh
+        on_d = [i for i, p in enumerate(t.placements)
+                if isinstance(p, Shard) and p.dim % t.dim() == d
+                and mesh.size(i) > 1]
+        if sizes[0] % math.prod(mesh.size(i) for i in on_d):
+            t = _moved(t, [Replicate() if i in on_d else p
+                           for i, p in enumerate(t.placements)])
+    return t.unflatten(dim, sizes)
+
+
 def matmul(x, w, *, bias, activation, out_dtype,
            local_matmul: Callable) -> DTensor:
     """``x @ w`` (+ ``bias``, ``activation``) with ``x`` (..., K) and ``w``

@@ -12,6 +12,15 @@ One process runs one rank.  Under ``torchrun --standalone
 process started alone makes a world of one over an in-memory store (no
 port is opened).  The backend follows the device: NCCL on the card, gloo
 on the CPU.  Importing this module touches no device and no process group.
+
+``make_production_mesh`` and ``make_host_mesh`` are the dry run's meshes:
+the reference's production topologies (16 x 16, 2 x 16 x 16) and small
+host meshes, over a *fake* process group in this one process
+(``torch.distributed``'s ``fake`` backend: every collective returns at
+once without moving data).  They trace, with fake tensors, what one rank
+of such a mesh would run; they never run a real step, and they refuse to
+start where a real process group is live.  ``build_mesh`` stays the only
+real mesh.
 """
 from __future__ import annotations
 
@@ -138,3 +147,84 @@ def describe_mesh(mesh) -> Dict[str, object]:
     return {"devices": math.prod(sizes.values()),
             "axes": {a: sizes[a] for a in axis_names(mesh)},
             "label": mesh_axis_label(mesh)}
+
+
+# ---------------------------------------------------------------------------
+# The dry run's meshes: a fake process group in one process
+# ---------------------------------------------------------------------------
+
+FAKE_BACKEND = "fake"
+
+
+def _clear_dtensor_caches() -> None:
+    """Drop DTensor's sharding-propagation and redistribution caches: their
+    entries hold the mesh (and its process-group names) they were made
+    on, and a fake world started again as another rank makes groups of
+    other names."""
+    clear = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                    None)
+    if clear is not None:
+        clear()
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for fn in (getattr(prop, "propagate_op_sharding", None),
+               getattr(prop, "_propagate_tensor_meta_cached", None),
+               getattr(_redistribute, "_gen_transform_infos", None)):
+        if hasattr(fn, "cache_clear"):
+            fn.cache_clear()
+    planner = getattr(_redistribute, "clear_redistribute_planner_cache",
+                      None)
+    if planner is not None:
+        planner()
+
+
+def fake_world(world: int, rank: int = 0) -> None:
+    """Make this process rank ``rank`` of a fake process group of ``world``
+    ranks (kept when it is already that).  Raises where a real process
+    group is live: the dry run runs in a process of its own."""
+    if dist.is_initialized():
+        backend = dist.get_backend()
+        if backend != FAKE_BACKEND:
+            raise RuntimeError(
+                f"a real {backend} process group is live in this process; "
+                "the dry run's meshes need a fake one, in a process of "
+                "their own (build_mesh is the real mesh)")
+        if dist.get_world_size() == world and dist.get_rank() == rank:
+            return
+        end_fake_world()
+    # the module registers the fake backend's constructor with c10d
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    dist.init_process_group(FAKE_BACKEND, rank=rank, world_size=world,
+                            store=dist.HashStore())
+
+
+def end_fake_world() -> None:
+    """Destroy the fake process group (if it is the live one) and the
+    DTensor caches made on its meshes."""
+    if dist.is_initialized() and dist.get_backend() == FAKE_BACKEND:
+        dist.destroy_process_group()
+        _clear_dtensor_caches()
+
+
+def _fake_mesh(shape, axes, rank: int) -> DeviceMesh:
+    fake_world(math.prod(shape), rank)
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int = 0) -> DeviceMesh:
+    """The reference's production mesh, as rank ``rank`` of a fake process
+    group: one pod is 16 x 16 = 256 devices (data, model); two pods are
+    2 x 16 x 16 = 512 (pod, data, model), the ``pod`` axis pure data
+    parallelism."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _fake_mesh(shape, axes, rank)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *,
+                   rank: int = 0) -> DeviceMesh:
+    """A small (data, model) mesh as rank ``rank`` of a fake process
+    group, for tests of the dry run."""
+    return _fake_mesh((data, model), ("data", "model"), rank)

@@ -108,11 +108,11 @@ def attention_template(d_model: int, dims: AttnDims, qkv_bias: bool = False):
 def cross_kv(params, src: torch.Tensor, dims: AttnDims):
     """Project encoder / image embeddings (B, N, D) to the cross-attention
     K, V (B, N, KV, hd), once per prompt."""
-    b = src.shape[0]
-    k = matmul(src, params["wk"], bias=params.get("bk")).reshape(
-        b, -1, dims.num_kv_heads, dims.head_dim)
-    v = matmul(src, params["wv"], bias=params.get("bv")).reshape(
-        b, -1, dims.num_kv_heads, dims.head_dim)
+    heads = (dims.num_kv_heads, dims.head_dim)
+    k = dops.unflatten(matmul(src, params["wk"], bias=params.get("bk")), -1,
+                       heads)
+    v = dops.unflatten(matmul(src, params["wv"], bias=params.get("bv")), -1,
+                       heads)
     return k, v
 
 
@@ -250,15 +250,18 @@ def attention(
         else:
             _log_flash_fallback(reason)
 
-    q = matmul(x, params["wq"], bias=params.get("bq")).reshape(b, s, h, hd)
+    q = dops.unflatten(matmul(x, params["wq"], bias=params.get("bq")), -1,
+                       (h, hd))
     if kv_override is not None:
         k, v = kv_override
-        out = _sdpa_chunked(q.reshape(b, s, kvh, dims.group, hd), k, v,
+        out = _sdpa_chunked(dops.unflatten(q, 2, (kvh, dims.group)), k, v,
                             causal=False, q_offset=0, kv_len=None,
                             chunk=q_chunk, p_dtype=p_dtype)
         return matmul(out.reshape(b, s, h * hd), params["wo"]), None
-    k = matmul(x, params["wk"], bias=params.get("bk")).reshape(b, s, kvh, hd)
-    v = matmul(x, params["wv"], bias=params.get("bv")).reshape(b, s, kvh, hd)
+    k = dops.unflatten(matmul(x, params["wk"], bias=params.get("bk")), -1,
+                       (kvh, hd))
+    v = dops.unflatten(matmul(x, params["wv"], bias=params.get("bv")), -1,
+                       (kvh, hd))
     if rope_theta:
         q = apply_rope(q, positions, theta=rope_theta, fraction=rope_fraction)
         k = apply_rope(k, positions, theta=rope_theta, fraction=rope_fraction)
@@ -293,7 +296,7 @@ def attention(
         out = flash_attention(q, kf, vf, causal=causal, kv_start=kv_start)
         return matmul(out.reshape(b, s, h * hd), params["wo"]), new_cache
 
-    qg = q.reshape(b, s, kvh, dims.group, hd)
+    qg = dops.unflatten(q, 2, (kvh, dims.group))
     out = _sdpa_chunked(qg, k, v, causal=causal, q_offset=q_offset,
                         kv_len=kv_len, chunk=q_chunk, p_dtype=p_dtype,
                         kv_start=kv_start)

@@ -111,3 +111,18 @@ def build_model(cfg: ModelConfig) -> Model:
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return Model(cfg=cfg, template=tpl)
+
+
+def active_param_count(model: Model) -> int:
+    """Per-token active parameters (a MoE counts its top-k experts only):
+    the N of MODEL_FLOPS = 6 N D (train) or 2 N D (inference) in the
+    roofline."""
+    cfg = model.cfg
+    total = model.param_count()
+    if not cfg.num_experts:
+        return total
+    # expert weights: 3 * d_model * d_ff per expert per layer
+    per_layer_exp = 3 * cfg.d_model * cfg.d_ff
+    inactive = cfg.num_layers * per_layer_exp * (cfg.num_experts
+                                                 - cfg.experts_per_token)
+    return total - inactive

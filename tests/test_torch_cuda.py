@@ -1109,6 +1109,60 @@ def test_cuda_profiling_trace_names_k1_and_k2(cuda, tmp_path):
     assert "flash_fwd_wgmma_kernel" in launchers, launchers
 
 
+def test_cuda_roofline_row_of_a_traced_train_step(cuda, tmp_path):
+    """The dry run's roofline row (``launch.dryrun.cell_record`` on fake
+    tensors, ``launch.roofline.roofline_row`` on ``h100``) of the train
+    step a trace measures on the card: full-width llama3.2-1b at 2 layers,
+    4 x 256 tokens, bf16, remat.  The compute term (each dtype's flops over
+    its peak) is a floor of the device's busy time; the dry run's peak
+    memory is within 10% of the step's measured one; the row's product
+    flops are K1's and the attention einsums' own."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.core.hardware import H100
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.dryrun import cell_record
+    from repro_torch.launch.roofline import roofline_row
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.profiling import annotate, trace
+    from repro_torch.profiling.breakdown import DEVICE_CATEGORIES
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2,
+                              dtype="bfloat16", attention_impl="chunked",
+                              remat=True)
+    model, opt = build_model(cfg), AdamW(learning_rate=1e-4)
+    b, s = 4, 256
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                     global_batch=b), device=cuda)(0)
+    state = init_train_state(model, opt, 0, device=cuda)
+    step = make_train_step(model, opt)
+    step(state, batch)                              # builds, outside
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with trace(str(tmp_path)) as sess:
+        with annotate("train.step"):
+            step(state, batch)
+        torch.cuda.synchronize()
+    measured_peak = torch.cuda.max_memory_allocated()
+    busy_s = sum(float(e["dur"]) for e in sess.events()
+                 if e.get("ph") == "X"
+                 and e.get("cat") in DEVICE_CATEGORIES) / 1e6
+    rec = cell_record(cfg, ShapeSpec("unit", s, b, "train"))
+    row = roofline_row(rec, H100)
+    assert row["hardware"] == "h100" and row["chips"] == 1
+    assert set(rec["step_stats"]["flops_by_dtype"]) == {"bfloat16",
+                                                       "float32"}
+    assert 0 < row["compute_s"] <= busy_s, (row, busy_s)
+    assert row["est_step_s"] == max(row["compute_s"], row["memory_s"])
+    assert row["collective_s"] == 0 and row["collective_count"] == 0
+    assert abs(rec["memory"]["peak_bytes"] - measured_peak) \
+        <= 0.1 * measured_peak, (rec["memory"], measured_peak)
+
+
 @pytest.fixture
 def one_rank_mesh(cuda):
     """A data=1,model=1 mesh over NCCL (a world of one), torn down after."""

@@ -490,20 +490,32 @@ def _script(*args, cwd):
 def test_profile_script_train_serve_and_diff(tmp_path):
     """``train --steps 1`` and ``serve`` on reduced llama on the CPU write
     PROFILE files both validators accept, with the steps and chunks
-    annotated; ``diff`` reads the port's and the reference's files."""
+    annotated and the roofline of the step profiled beside the breakdown
+    (a train step of 2 x 16, a decode step of 2 rows over the 256-token
+    cache, on the ``cpu`` profile), printed; ``diff`` reads the port's and
+    the reference's files."""
     out = _script("train", "--device", "cpu", "--steps", "1", "--batch", "2",
                   "--seq-len", "16", "--out", "t.json", cwd=tmp_path)
-    assert "[roofline] not ported" in out
+    assert "[roofline] analytic bounds on cpu (1 chip(s))" in out
     out = _script("serve", "--device", "cpu", "--batch", "2", "--plen", "5",
                   "--max-new", "4", "--out", "s.json", cwd=tmp_path)
     assert "serve.decode_chunk" in out
+    assert "[roofline] analytic bounds on cpu (1 chip(s))" in out
     train = json.loads((tmp_path / "t.json").read_text())
     serve = json.loads((tmp_path / "s.json").read_text())
-    for blob in (train, serve):
+    for blob, kind, model_flops in (
+            (train, "train", 6 * 2 * 16), (serve, "decode", 2 * 2)):
         validate_profile(blob)
         jax_profiling.validate_profile(blob)
-        assert blob["mesh"] is None and "roofline" not in blob
+        assert blob["mesh"] is None
         assert blob["timeline"] == "host"
+        roof = blob["roofline"]
+        assert roof["hardware"] == "cpu" and roof["kind"] == kind
+        assert roof["chips"] == 1 and roof["collective_s"] == 0
+        assert roof["est_step_s"] == max(roof["compute_s"], roof["memory_s"])
+        assert roof["est_step_s"] > 0
+        # MODEL_FLOPS = 6 N D (train) or 2 N B (decode), N the parameters
+        assert roof["model_flops"] % model_flops == 0
     assert train["steps_traced"] == 1
     assert train["annotations"]["train.step"]["count"] == 1
     assert serve["annotations"]["serve.decode_chunk"]["count"] == \
