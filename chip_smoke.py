@@ -124,7 +124,27 @@ Phases, each printing one JSON line:
    and the shared block) whose continuous and wave tokens must equal the
    per-prompt oracle's.
 
-13. ``train`` — every serving weight freed first; full-width llama3.2-1b
+13. ``examples`` — every serving weight freed first; the port's three
+   examples and its prefix smoke, each imported and driven through its
+   step functions, each part's seconds and peak memory in the line and
+   its launch counts its own (apart from the main paths' totals):
+   ``examples/torch_quickstart.py`` at full width and depth (a measured
+   4096^3 bf16 sweep whose winner the registry then resolves ``exact``,
+   its TFLOP/s beside the card's name and power limit; 30 finite train
+   losses with K1 on wgmma 28 a layer + 1 a step, fma 2 a step, no
+   decode, wmma or flash launch; a serve on the decode kernel only),
+   ``examples/torch_autotune_and_serve.py`` at full width (two targets
+   persisted and reloaded, every captured GEMM shape and the prefill
+   flash problem measured into the registry, a serve whose every decode
+   GEMM and prefill flash lookup is ``exact``, the committed ``h100.json``
+   unchanged byte for byte), ``examples/torch_train_with_failure_
+   recovery.py`` at full width and 2 layers (a ~5 GB checkpoint under
+   ``build/``, removed after; parameters bit-equal after the replay) and
+   ``scripts/torch_prefix_cache_smoke.py --full`` (every assertion); then
+   ``python -m repro_torch.analysis report`` in a fresh process: exit 0,
+   JAX never imported.  The registry is reset to the committed table
+   after.
+14. ``train`` — every serving weight freed first; full-width llama3.2-1b
    in bf16 (seeded weights, chunked attention as the reference trains,
    remat) on the synthetic pipeline, batch 8 x 512, warmup_cosine(1e-3,
    10, 6): 6 steps through ``Trainer`` with a checkpoint at step 3
@@ -155,7 +175,7 @@ Phases, each printing one JSON line:
    (device time by family, by launching op and by kernel, K1's share):
    the blob must pass ``validate_profile``, with one ``train.step``
    marker and K1's kernels in the ``gemm`` family.
-14-17. ``train_audio``, ``train_ssm``, ``train_hybrid``, ``train_vlm`` —
+15-18. ``train_audio``, ``train_ssm``, ``train_hybrid``, ``train_vlm`` —
    the same for the other families (``TRAIN_PHASES``), with seeded extra
    inputs beside the tokens: whisper-large-v3 at full width and depth
    (8 x 512 decoder tokens, 8 x 1500 frames; 4 steps, a checkpoint at
@@ -166,7 +186,7 @@ Phases, each printing one JSON line:
    tokens, 4 x 1601 image embeddings, 3 steps); their f32 steps at 2 + 2
    layers, 2 layers, 1 unit, and 1 self + the cross layer; each with its
    traced step and ``train_profile`` line (no ``"dots"`` run).
-18. ``mesh`` — the distribution layer on a one-rank mesh
+19. ``mesh`` — the distribution layer on a one-rank mesh
    (``build_mesh("data=1,model=1")``: NCCL, a world of one): the serve
    phase's model, weights and 12 requests through an engine with no mesh
    and one on the mesh (inference TP rules), cold then warm (plain, mesh,
@@ -178,7 +198,7 @@ Phases, each printing one JSON line:
    params saved from the mesh and restored with no mesh, bit for bit.
    The walls of both runs are in its line; the process group is
    destroyed at its end.
-19. ``roofline`` — the dry run (``launch.dryrun``: the step traced once
+20. ``roofline`` — the dry run (``launch.dryrun``: the step traced once
    on fake tensors, one device) and its roofline on the ``h100`` profile
    (``launch.roofline``) for every step an earlier phase traced: the
    serve phase's prefills and decode steps, at the batch and length each
@@ -1932,6 +1952,222 @@ def phase_serve_hybrid(torch, ctx):
 
 
 # ---------------------------------------------------------------------------
+# phase: examples
+# ---------------------------------------------------------------------------
+
+#: the port's examples and prefix smoke, by file; the phase imports each
+#: and calls its step functions (so launch counts split by step)
+EXAMPLE_FILES = {
+    "quickstart": "examples/torch_quickstart.py",
+    "autotune": "examples/torch_autotune_and_serve.py",
+    "recovery": "examples/torch_train_with_failure_recovery.py",
+    "prefix_smoke": "scripts/torch_prefix_cache_smoke.py",
+}
+#: the recovery example's depth on the card: a ~4.6 GB checkpoint
+RECOVERY_LAYERS = 2
+
+
+def load_file(name: str):
+    """Import one of ``EXAMPLE_FILES`` by path (they are scripts)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_chip_{name}", os.path.join(HERE, EXAMPLE_FILES[name]))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def counted(torch, fn):
+    """``fn()`` with the launch counts from 0 just before: (its result,
+    K1's launches by path, K2's)."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, kernels.gemm_launches_by_path(), \
+        kernels.flash_launches_by_path()
+
+
+def example_quickstart(torch, mod, dev):
+    """The quickstart at full width and depth: the measured 4096^3 sweep
+    (its winner resolves ``exact``), 30 train steps (K1 by the train
+    formula), the serve (decode and wgmma only)."""
+    from repro_torch.models import build_model
+    res, lookup = mod.tune(dev)
+    cfg = mod.model_config()
+    model = build_model(cfg)
+    (state, losses), g_train, f_train = counted(
+        torch, lambda: mod.train(model, dev))
+    outs, g_serve, f_serve = counted(
+        torch, lambda: mod.serve(model, state.params, dev))
+    steps = len(losses)
+    want = TRAIN_PHASES["train"]["wgmma"](cfg) * steps
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "sweep": {"shape": list(res.shape), "winner": res.best.config
+                     .schedule, "source": res.best.source,
+                     "tflops": res.best.gflops / 1e3,
+                     "evaluated": res.evaluated,
+                     "candidates": res.candidates_total,
+                     "lookup": lookup.source},
+           "losses": losses, "train_gemm_launches_by_path": g_train,
+           "train_flash_launches_by_path": f_train,
+           "train_wgmma_expected": want, "tokens": outs,
+           "serve_gemm_launches_by_path": g_serve,
+           "serve_flash_launches_by_path": f_serve}
+    assert res.best.source.startswith("measure") and \
+        lookup.source == "exact" and lookup.config == res.best.config, out
+    assert steps == 30 and all(math.isfinite(x) for x in losses), losses
+    assert g_train["wgmma"] == want and g_train["fma"] == 2 * steps, out
+    assert g_train["decode"] == g_train["wmma"] == 0, g_train
+    assert sum(f_train.values()) == 0, f_train
+    assert [len(o) for o in outs] == [8, 8] and all(
+        0 <= t < cfg.vocab_size for o in outs for t in o), outs
+    assert g_serve["decode"] > 0 and g_serve["wmma"] == g_serve["fma"] == 0, \
+        g_serve
+    return out
+
+
+def example_autotune(torch, mod, dev):
+    """The autotune example at full width: two targets persisted and
+    reloaded, every captured GEMM shape and the prefill flash problem
+    measured into the registry, then a serve whose every decode GEMM and
+    prefill flash lookup is ``exact``; the committed table untouched."""
+    from repro_torch.models import build_model
+    before = mod.committed_table_hash()
+    results, reloaded = mod.tune_two_targets(dev)
+    cfg = mod.model_config()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    shapes = mod.capture_shapes(model, params, dev)
+    tuned, flash = mod.tune_captured(shapes, cfg, dev)
+    (outs, st), g_serve, f_serve = counted(
+        torch, lambda: mod.serve(model, params, dev))
+    after = mod.committed_table_hash()
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "targets": {hw: {"winner": r.best.config.schedule,
+                            "source": r.best.source,
+                            "tflops": r.best.gflops / 1e3}
+                       for hw, r in results},
+           "reloaded": reloaded, "shapes": len(shapes),
+           "tuned": {"x".join(map(str, s)): v for s, v in tuned.items()},
+           "flash": {"winner": flash.best.config.schedule,
+                     "source": flash.best.source},
+           "decode_tile_lookups": st["decode_tile_lookups"],
+           "prefill_flash_lookups": st["prefill_flash_lookups"],
+           "not_exact": mod.not_exact(st), "tokens": outs,
+           "serve_gemm_launches_by_path": g_serve,
+           "serve_flash_launches_by_path": f_serve,
+           "table_sha256": after, "table_unchanged": after == before}
+    assert reloaded == 2 and results[0][1].best.source.startswith(
+        "measure"), out
+    assert st["decode_tile_lookups"] and st["prefill_flash_lookups"], out
+    assert not out["not_exact"] and out["table_unchanged"], out
+    assert g_serve["wmma"] == g_serve["fma"] == 0 and f_serve["fma"] == 0 \
+        and f_serve["wgmma"] > 0, out
+    return out
+
+
+def example_recovery(torch, mod, dev):
+    """The recovery example at full width and ``RECOVERY_LAYERS`` layers:
+    20 steps, a checkpoint at 10 under ``build/``, the restore and replay
+    bit for bit; the checkpoint removed after."""
+    import shutil
+    from repro_torch.models import build_model
+    cfg = mod.model_config(layers=RECOVERY_LAYERS)
+    model = build_model(cfg)
+    ckdir = os.path.join(HERE, "build", "examples_checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    try:
+        (latest, diff, losses), g, f = counted(
+            torch, lambda: mod.run(model, dev, ckdir))
+        ckpt_gb = sum(os.path.getsize(os.path.join(d, n))
+                      for d, _s, names in os.walk(ckdir)
+                      for n in names) / 1e9
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    steps = mod.STEPS + mod.STEPS - mod.SAVE_AT
+    want = TRAIN_PHASES["train"]["wgmma"](cfg) * steps
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "latest_checkpoint": latest, "checkpoint_gb": ckpt_gb,
+           "max_param_diff": diff, "replayed_losses": losses,
+           "gemm_launches_by_path": g, "flash_launches_by_path": f,
+           "wgmma_expected": want}
+    assert latest == mod.SAVE_AT and diff == 0.0, out
+    assert g["wgmma"] == want and g["fma"] == 2 * steps, out
+    return out
+
+
+def example_prefix_smoke(torch, mod, dev):
+    """``torch_prefix_cache_smoke --full``: every assertion holds."""
+    path = os.path.join(HERE, "build", "prefix_smoke_stats.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rc, g, f = counted(torch, lambda: mod.main(["--full", "--json", path]))
+    with open(path) as fh:
+        pc = json.load(fh)["prefix_cache"]
+    out = {"rc": rc, "prefix_cache": pc, "gemm_launches_by_path": g,
+           "flash_launches_by_path": f}
+    assert rc == 0, out
+    assert g["wmma"] == g["fma"] == 0 and sum(g.values()) > 0, out
+    return out
+
+
+def example_analyzer(torch, mod, dev):
+    """``python -m repro_torch.analysis report`` in a fresh process on
+    this machine: exit 0, JAX never imported."""
+    code = ("import sys\nfrom repro_torch.analysis.cli import main\n"
+            "rc = main(['report'])\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=300)
+    tail = proc.stdout.strip().splitlines()[-2:]
+    out = {"rc": proc.returncode, "summary": tail}
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return out
+
+
+def phase_examples(torch, ctx):
+    """The port's three examples and its prefix smoke on the card, each
+    imported and driven through its step functions, then the static
+    checker in a fresh process.  Each part's seconds and peak memory are
+    in the line; its launches by path are its own, apart from the main
+    paths' totals.  The registry is put back to the committed table after
+    (the examples' sweeps land in it)."""
+    from repro_torch.core import GLOBAL_REGISTRY, tuning_db
+    ctx.clear()
+    free_card(torch)
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = {"phase": "examples", "card": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi()}
+    parts = (("quickstart", example_quickstart),
+             ("autotune", example_autotune),
+             ("recovery", example_recovery),
+             ("prefix_smoke", example_prefix_smoke),
+             ("analyzer", example_analyzer))
+    try:
+        for name, run in parts:
+            mod = load_file(name) if name in EXAMPLE_FILES else None
+            free_card(torch)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = run(torch, mod, dev)
+            torch.cuda.synchronize()
+            out[name] = dict(res, seconds=time.perf_counter() - t0,
+                             peak_mem_gb=torch.cuda.max_memory_allocated()
+                             / 1e9)
+    finally:
+        GLOBAL_REGISTRY.clear()
+        tuning_db.load_all(GLOBAL_REGISTRY, strict=True)
+        free_card(torch)
+        out["seconds"] = time.perf_counter() - t_phase
+        emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase: train
 # ---------------------------------------------------------------------------
 
@@ -2926,6 +3162,7 @@ def main(argv=None) -> int:
     families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx),
                 phase_serve_stablelm(torch, ctx), phase_serve_audio(torch, ctx),
                 phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx)]
+    phase_examples(torch, ctx)
     families += [phase_train(torch, ctx, p) for p in TRAIN_PHASES]
     families += phase_mesh(torch, serve_outs, families)
     phase_roofline(torch)

@@ -69,8 +69,10 @@ def paged_scatter(pool_flat: torch.Tensor, idx, cols: torch.Tensor) -> torch.Ten
     flat_idx = torch.as_tensor(idx).reshape(-1).to(torch.long)
     flat_idx = torch.where(flat_idx < 0, flat_idx + n, flat_idx)
     keep = (flat_idx >= 0) & (flat_idx < n)
+    # host (CPU) indices, as the engine's, are tested on the host: no sync
+    # analysis: allow(TP002, TP003)
     if not bool(keep.all()):
-        pos = keep.nonzero().squeeze(1)
+        pos = keep.nonzero().squeeze(1)  # analysis: allow(TP001)
         flat_idx = flat_idx[pos]
         flat_cols = flat_cols.index_select(axis, pos.to(flat_cols.device))
     pool_flat.index_copy_(axis, flat_idx.to(pool_flat.device), flat_cols)

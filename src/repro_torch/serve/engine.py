@@ -455,6 +455,7 @@ class Engine:
     def _sync_if_profiling(self) -> None:
         if self.cfg.profile and self.device.type == "cuda":
             # deliberate sync: profile mode splits prefill / decode time
+            # analysis: allow(TP001)
             torch.cuda.synchronize(self.device)
 
     # -- dense cache (wave) ---------------------------------------------------
@@ -524,16 +525,18 @@ class Engine:
             cache = self._scratch[plen] = self._self_cache(plen)
         return cache
 
-    def _scatter_fixed(self, filled, slots: torch.Tensor) -> None:
+    def _scatter_fixed(self, filled, slots: torch.Tensor,
+                       slot_ids: List[int]) -> None:
         """Copy the admitted ``slots``' rows of a prefill's fixed leaves into
-        the resident tree; other slots keep their live rows."""
+        the resident tree; other slots keep their live rows.  The mesh path
+        takes the same slots as the host list ``slot_ids``."""
         new = {k: filled[k] for k in self._fixed}
         for (dst, bd), (src, _) in zip(_fixed_leaves(self._fixed),
                                        _fixed_leaves(new)):
             if self.mesh is None:
                 dst.index_copy_(bd, slots, src.index_select(bd, slots))
             else:
-                dops.copy_rows(dst, src, bd, slots.tolist())
+                dops.copy_rows(dst, src, bd, slot_ids)
 
     def _batch_extras(self, batch, reqs: List[_Request], extra_inputs):
         """Put each request's rows of ``extra_inputs`` (indexed by
@@ -818,6 +821,7 @@ class Engine:
                     cur = self._sample(logits)
                     offset += 1
             # The ONE device-to-host transfer of this wave.
+            # analysis: allow(TP001)
             host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
         t2 = time.perf_counter()
         self._stats["device_transfers"] += 1
@@ -981,10 +985,11 @@ class Engine:
             dest_t = torch.from_numpy(dest)
             for pool, src in zip(self._pools, filled["self"]):
                 self._scatter_pool(pool, dest_t, src)
-            slots = torch.tensor([r.slot for r in admitted],
-                                 dtype=torch.long, device=self.device)
+            slot_ids = [r.slot for r in admitted]
+            slots = torch.tensor(slot_ids, dtype=torch.long,
+                                 device=self.device)
             if self._fixed:
-                self._scatter_fixed(filled, slots)
+                self._scatter_fixed(filled, slots, slot_ids)
             self._cur[slots] = self._sample(logits0)[slots]
             self._sync_if_profiling()
         self._stats["prefill_seconds"] += time.perf_counter() - t0
@@ -1080,6 +1085,7 @@ class Engine:
             self._fixed = {k: cache[k] for k in self._fixed}
             self._cur = cur
             # The ONE device-to-host transfer of this chunk.
+            # analysis: allow(TP001)
             host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
         self._stats["decode_seconds"] += time.perf_counter() - t0
         self._stats["device_transfers"] += 1

@@ -242,6 +242,8 @@ class Trainer:
                 state, metrics = self._step(state, batch)
             if self.cfg.step_deadline_s is not None:
                 if metrics["loss"].is_cuda:
+                    # deliberate sync: the watchdog times the finished step
+                    # analysis: allow(TP001)
                     torch.cuda.synchronize(metrics["loss"].device)
                 dt = time.perf_counter() - t0
                 self.step_walls.append(dt)
@@ -254,6 +256,8 @@ class Trainer:
             if (self.checkpointer is not None
                     and (step_idx + 1) % self.cfg.checkpoint_every == 0):
                 self.checkpointer.save(step_idx + 1, state)
+        # the run's ONE device-to-host transfer: every logged loss at once
+        # analysis: allow(TP001)
         losses = (torch.stack([sh.full(x) for x in logged_losses]).cpu()
                   .tolist() if logged_losses else [])
         return state, list(zip(logged_steps, losses))

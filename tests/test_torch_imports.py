@@ -39,13 +39,39 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert int(proc.stdout.strip()) >= 20     # every subpackage was walked
 
 
+#: the port's examples and scripts beside the package
+PORT_FILES = sorted(list((REPO / "examples").glob("torch_*.py"))
+                    + list((REPO / "scripts").glob("torch_*.py")))
+
+_IMPORT_FILES = """
+import importlib.util, sys
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"_port_file_{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert "jax" not in sys.modules, "jax was imported"
+bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+assert not bad, bad
+print(len(sys.argv) - 1)
+"""
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in list(PORT.rglob("*.py"))
-    + [REPO / "chip_smoke.py"]))
+    + [REPO / "chip_smoke.py"] + PORT_FILES))
 def test_source_has_no_jax_or_reference_import(path):
     src = (REPO / path).read_text()
     hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
     assert not hits, f"{path}: {hits}"
+
+
+def test_port_examples_and_scripts_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_FILES,
+                           *map(str, PORT_FILES)], env=env, cwd=str(REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) == len(PORT_FILES)
+    assert len([p for p in PORT_FILES if p.parent.name == "examples"]) == 3
 
 
 def test_forbidden_pattern_catches_what_it_should():
