@@ -72,7 +72,22 @@ Phases, each printing one JSON line:
    stream callbacks, 4 requests more submitted while it drains; (f) float32
    exactness of the wave, prefix-cache (cold and warm) and int8 engines
    against the per-prompt oracle (2 layers).
-7. ``serve_moe`` — the llama weights freed first; full-width olmoe-1b-7b
+7. ``ir`` — the IR checker (``repro_torch.analysis.ir``) on the card's
+   machine, at most 60 s: (a) ``python -m repro_torch.analysis ir
+   --smoke --no-cache`` in a fresh process (its torch, no JAX): exit 0,
+   0 errors, a warning only IR005's (the committed fingerprints gate
+   hashes on the torch version they were blessed under); (b) the serve
+   phase's model at full width and depth on an engine like its (8 slots,
+   max_len 1024, chunk 8): one admission of 8 of its prompts and one
+   decode chunk, each run once under the tracer on the card with the
+   launch counts set to 0 just before and read just after: IR000-IR003
+   find nothing against the ``h100`` profile, K1's units in the chunk
+   equal its launches there (all decode), K2's in the admission its
+   launches (all wgmma); each entry's traced peak beside
+   ``torch.cuda.max_memory_allocated``, and the chunk's op histogram as a
+   structural diff against the committed CPU case's (a record, not a
+   gate).
+8. ``serve_moe`` — the llama weights freed first; full-width olmoe-1b-7b
    (16 layers, 64 experts, top-8, MHA at head dim 128) in bf16 with seeded
    random weights, flash prefill: the serve phase's 12 requests
    continuous, then wave, then the prefix-cache traffic of b cold and warm,
@@ -85,7 +100,7 @@ Phases, each printing one JSON line:
    prefill slots; and a float32 pass (full width, 2 layers, capacity factor
    8.0, where no slot can drop) whose continuous and wave tokens must equal
    the per-prompt oracle's.
-8. ``serve_vlm`` — the olmoe weights freed first; full-width
+9. ``serve_vlm`` — the olmoe weights freed first; full-width
    llama-3.2-vision-11b (8 units of 4 self layers and one cross-attention
    layer over 1601 image tokens) in bf16 with seeded random weights and
    seeded random image embeddings (one per request, ``extra_inputs``):
@@ -93,13 +108,13 @@ Phases, each printing one JSON line:
    not consulted with extra inputs: no hit), finite logits of one batched
    prefill, and a float32 pass at full width and one unit (5 layers)
    whose tokens must equal the per-prompt oracle's.
-9. ``serve_stablelm`` — stablelm-12b at full width (d 5120, 32 / 8 heads
+10. ``serve_stablelm`` — stablelm-12b at full width (d 5120, 32 / 8 heads
    at head dim 160, vocab 100352) and 2 layers in bf16 with flash prefill:
    the serve phase's 12 requests, 8 new tokens each, with the launch counts
    set to 0 before (every GEMM on decode or wgmma, every prefill attention
    on the wgmma flash kernel at d 160); then a float32 pass (2 layers)
    whose continuous and wave tokens must equal the per-prompt oracle's.
-10. ``serve_audio`` — full-width whisper-large-v3 (32 encoder + 32 decoder
+11. ``serve_audio`` — full-width whisper-large-v3 (32 encoder + 32 decoder
    layers, d 1280, 20 heads at head dim 64, untied K-major head over 51866
    tokens) in bf16 with seeded random frame embeddings (1500 a request,
    ``extra_inputs``): the same three traffics and checks as serve_moe (the
@@ -107,7 +122,7 @@ Phases, each printing one JSON line:
    batched prefill, the encoder's share of a prefill's device time, and a
    float32 pass at full width and 2 + 2 layers whose tokens must equal the
    per-prompt oracle's.
-11. ``serve_ssm`` — full-width mamba2-130m (24 attention-free Mamba2
+12. ``serve_ssm`` — full-width mamba2-130m (24 attention-free Mamba2
    layers, d 768, state 128, tied head over 50280 tokens) in bf16: the 12
    requests and the prefix traffic, each twice on fresh engines, on the
    wave scheduler the engine is forced onto (asserted; the prefix cache is
@@ -115,7 +130,7 @@ Phases, each printing one JSON line:
    wave, equal tokens on repeat; finite logits of one batched prefill; a
    float32 pass at full width and 2 layers whose tokens must equal the
    per-prompt oracle's.
-12. ``serve_hybrid`` — full-width zamba2-2.7b (9 units of 6 Mamba2 layers
+13. ``serve_hybrid`` — full-width zamba2-2.7b (9 units of 6 Mamba2 layers
    and one shared attention block at head dim 80, d 2560, untied head over
    32000 tokens) in bf16 with flash prefill: the same three traffics and
    checks as serve_moe (>= 4 full and >= 7 partial warm hits, whose
@@ -124,7 +139,7 @@ Phases, each printing one JSON line:
    and the shared block) whose continuous and wave tokens must equal the
    per-prompt oracle's.
 
-13. ``examples`` — every serving weight freed first; the port's three
+14. ``examples`` — every serving weight freed first; the port's three
    examples and its prefix smoke, each imported and driven through its
    step functions, each part's seconds and peak memory in the line and
    its launch counts its own (apart from the main paths' totals):
@@ -144,7 +159,7 @@ Phases, each printing one JSON line:
    ``python -m repro_torch.analysis report`` in a fresh process: exit 0,
    JAX never imported.  The registry is reset to the committed table
    after.
-14. ``train`` — every serving weight freed first; full-width llama3.2-1b
+15. ``train`` — every serving weight freed first; full-width llama3.2-1b
    in bf16 (seeded weights, chunked attention as the reference trains,
    remat) on the synthetic pipeline, batch 8 x 512, warmup_cosine(1e-3,
    10, 6): 6 steps through ``Trainer`` with a checkpoint at step 3
@@ -175,7 +190,7 @@ Phases, each printing one JSON line:
    (device time by family, by launching op and by kernel, K1's share):
    the blob must pass ``validate_profile``, with one ``train.step``
    marker and K1's kernels in the ``gemm`` family.
-15-18. ``train_audio``, ``train_ssm``, ``train_hybrid``, ``train_vlm`` —
+16-19. ``train_audio``, ``train_ssm``, ``train_hybrid``, ``train_vlm`` —
    the same for the other families (``TRAIN_PHASES``), with seeded extra
    inputs beside the tokens: whisper-large-v3 at full width and depth
    (8 x 512 decoder tokens, 8 x 1500 frames; 4 steps, a checkpoint at
@@ -186,7 +201,7 @@ Phases, each printing one JSON line:
    tokens, 4 x 1601 image embeddings, 3 steps); their f32 steps at 2 + 2
    layers, 2 layers, 1 unit, and 1 self + the cross layer; each with its
    traced step and ``train_profile`` line (no ``"dots"`` run).
-19. ``mesh`` — the distribution layer on a one-rank mesh
+20. ``mesh`` — the distribution layer on a one-rank mesh
    (``build_mesh("data=1,model=1")``: NCCL, a world of one): the serve
    phase's model, weights and 12 requests through an engine with no mesh
    and one on the mesh (inference TP rules), cold then warm (plain, mesh,
@@ -198,7 +213,7 @@ Phases, each printing one JSON line:
    params saved from the mesh and restored with no mesh, bit for bit.
    The walls of both runs are in its line; the process group is
    destroyed at its end.
-20. ``roofline`` — the dry run (``launch.dryrun``: the step traced once
+21. ``roofline`` — the dry run (``launch.dryrun``: the step traced once
    on fake tensors, one device) and its roofline on the ``h100`` profile
    (``launch.roofline``) for every step an earlier phase traced: the
    serve phase's prefills and decode steps, at the batch and length each
@@ -1201,6 +1216,130 @@ def phase_serve(torch):
     ctx = {"cfg": cfg, "model": model, "params": params, "prompts": prompts,
            "outs": outs, "m32": m32, "p32": p32, "prompts32": prompts32}
     return launches, {"gemm": gemm_paths, "flash_attention": flash_paths}, ctx
+
+
+# ---------------------------------------------------------------------------
+# phase: ir
+# ---------------------------------------------------------------------------
+
+#: the ir phase's limit (the checker's smoke in a fresh process and the
+#: full-width traced admission and chunk)
+IR_PHASE_LIMIT_S = 60.0
+#: the committed CPU case whose decode chunk the card's is diffed against
+IR_CPU_CASE = "llama3.2-1b/continuous/single/bfloat16"
+
+
+def ir_smoke_cli():
+    """``python -m repro_torch.analysis ir --smoke`` in a fresh process on
+    this machine (its own torch, no JAX): exit 0 and 0 errors; a warning
+    may only be IR005's (hashes gate on the torch version the committed
+    fingerprints were blessed under).  Traced anew (``--no-cache``)."""
+    out_json = os.path.join(HERE, "build", "ir_smoke.json")
+    cache = os.path.join(HERE, "build", "ir_cache")
+    code = ("import sys\nfrom repro_torch.analysis.cli import main\n"
+            f"rc = main(['ir', '--smoke', '--no-cache', '--json', "
+            f"{out_json!r}, '--cache-dir', {cache!r}])\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    with open(out_json) as f:
+        blob = json.load(f)
+    warned = sorted({f["check_id"] for f in blob["findings"]
+                     if f["severity"] != "error"})
+    assert blob["errors"] == 0 and warned in ([], ["IR005"]), blob
+    return {"rc": proc.returncode, "seconds": secs,
+            "errors": blob["errors"], "warnings": blob["warnings"],
+            "warning_ids": warned, "torch_version": blob["torch_version"],
+            "fingerprint_torch_version": blob["fingerprint_torch_version"],
+            "hash_gate_active": blob["hash_gate_active"],
+            "cases": [r["case"] for r in blob["ir_cases"]],
+            "summary": proc.stdout.strip().splitlines()[-1]}
+
+
+def ir_full_width(torch, ctx):
+    """The serve phase's model (llama3.2-1b, 16 layers, d 2048, bf16) on an
+    engine like the serve phase's (8 slots, max_len 1024, chunk 8): one
+    admission of 8 of its prompts and one decode chunk over those rows,
+    each under the IR tracer on the card, with the launch counts set to 0
+    just before and read just after each.  IR000-IR003 against the
+    ``h100`` profile must find nothing; K1's units in the chunk must equal
+    its launches there (all on the decode kernel), K2's units in the
+    admission its launches (all wgmma)."""
+    import contextlib
+
+    from repro_torch import kernels
+    from repro_torch.analysis.ir import checks, fingerprints, trace
+    from repro_torch.serve import Engine, ServeConfig
+    eng = Engine(ctx["model"], ctx["params"], ServeConfig(
+        max_batch=8, max_len=1024, decode_chunk=8))
+    prompts = ctx["prompts"][:8]
+    seen = {}
+
+    @contextlib.contextmanager
+    def around(entry):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        yield
+        torch.cuda.synchronize()
+        seen[entry] = {"gemm": kernels.gemm_launches_by_path(),
+                       "flash_attention": kernels.flash_launches_by_path(),
+                       "max_memory_allocated":
+                       torch.cuda.max_memory_allocated()}
+    t0 = time.perf_counter()
+    entries, errors = trace.trace_continuous(eng, prompts, around=around)
+    secs = time.perf_counter() - t0
+    result = trace.case_result(eng, f"{IR_CPU_CASE} (full width, card)",
+                               entries, errors, secs)
+    findings = checks.check_case(result)
+    assert result.hardware == "h100", result.hardware
+    assert not findings, [f.render() for f in findings]
+    admit, chunk = entries["admit"], entries["decode_chunk"]
+    k1 = chunk.prim_histogram.get("repro_torch.gemm", 0)
+    gp = seen["decode_chunk"]["gemm"]
+    assert k1 > 0 and k1 == gp["decode"] == sum(gp.values()), (k1, gp)
+    k2 = admit.prim_histogram.get("repro_torch.flash_attention", 0)
+    fp = seen["admit"]["flash_attention"]
+    assert k2 > 0 and k2 == fp["wgmma"] == sum(fp.values()), (k2, fp)
+    cpu = fingerprints.load_fingerprints()["cases"][IR_CPU_CASE]
+    del eng
+    return {
+        "case": result.case_id, "seconds": secs, "hardware":
+        result.hardware, "findings": len(findings),
+        "prompt_tokens": [len(p) for p in prompts],
+        "entries": {e: {"seconds": s.seconds, "ops": sum(
+            s.prim_histogram.values()), "program_hash": s.program_hash,
+            "traced_peak_bytes": s.memory["peak_bytes"],
+            "argument_bytes": s.memory["argument_bytes"],
+            "max_memory_allocated": seen[e]["max_memory_allocated"],
+            "gemm_launches_by_path": seen[e]["gemm"],
+            "flash_launches_by_path": seen[e]["flash_attention"],
+            "converts": len(s.converts), "dots": len(s.dots)}
+            for e, s in entries.items()},
+        "k1_units_chunk": k1, "k2_units_admit": k2,
+        "decode_chunk_vs_cpu": fingerprints.structural_diff(
+            cpu["entries"]["decode_chunk"]["prims"], chunk.prim_histogram),
+    }
+
+
+def phase_ir(torch, ctx):
+    """The IR checker on the card's machine: the ``ir --smoke`` CLI in a
+    fresh process, then the serve phase's model at full width traced on
+    the card (:func:`ir_full_width`)."""
+    t0 = time.perf_counter()
+    out = {"phase": "ir", "card": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi(), "cli": ir_smoke_cli(),
+           "full_width": ir_full_width(torch, ctx)}
+    free_card(torch)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    assert out["seconds"] <= IR_PHASE_LIMIT_S, out["seconds"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3159,6 +3298,7 @@ def main(argv=None) -> int:
     launches, paths, ctx = phase_serve(torch)
     serve_outs = ctx["outs"]
     features = phase_serve_features(torch, ctx)
+    phase_ir(torch, ctx)
     families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx),
                 phase_serve_stablelm(torch, ctx), phase_serve_audio(torch, ctx),
                 phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx)]

@@ -11,16 +11,17 @@ Subcommands::
     artifacts   tuned-table validation (AR00x) of src/repro_torch/tuned
     coverage    sharding-rule coverage (SH00x) of the model families
     stats       Engine.stats() keys vs the versioned schema (ST001)
+    ir          IR-level program contracts (IR000-IR005) over the traced
+                config matrix: see repro_torch/analysis/ir/
     pragmas     list every `# analysis: allow(...)` site and what it eats
-    report      lint + artifacts + coverage + stats behind the
-                committed-baseline ratchet gate
+    report      lint + artifacts + coverage + stats (+ optional --ir leg)
+                behind the committed-baseline ratchet gate
 
 Exit codes (the reference's)::
 
     0   clean: no findings beyond the committed baseline
     1   new findings (or --strict with any error finding)
-    2   usage error (unknown flag or subcommand; ``ir``, the reference's
-        IR-level contracts, is not ported yet)
+    2   usage error (unknown flag or subcommand)
 
 ``report`` is the gate: errors not in ``src/repro_torch/analysis/
 baseline.json`` (empty) exit 1; warnings are printed but never fail.
@@ -66,6 +67,32 @@ def _coverage_findings():
 def _stats_findings():
     from repro_torch.analysis.stats_checks import check_stats_schema
     return check_stats_schema(REPO_ROOT)
+
+
+def _ir_cases(args):
+    from repro_torch.analysis.ir.matrix import (DTYPES, FAMILIES, SCHEDULERS,
+                                                default_matrix, smoke_matrix)
+    if getattr(args, "smoke", False):
+        return smoke_matrix()
+    meshes = tuple(None if m in ("single", "none") else m
+                   for m in (args.mesh or ["single"]))
+    return default_matrix(
+        mesh_specs=meshes,
+        families=tuple(args.families.split(",")) if args.families
+        else FAMILIES,
+        schedulers=tuple(args.schedulers.split(",")) if args.schedulers
+        else SCHEDULERS,
+        dtypes=tuple(args.dtypes.split(",")) if args.dtypes else DTYPES)
+
+
+def _run_ir(args):
+    from repro_torch.analysis.ir.runner import run_ir
+    return run_ir(_ir_cases(args),
+                  use_cache=not getattr(args, "no_cache", False),
+                  cache_dir=getattr(args, "cache_dir", None),
+                  write_fingerprints=getattr(args, "write_fingerprints",
+                                             False),
+                  fingerprint_path=getattr(args, "fingerprints", None))
 
 
 def _emit(findings, args, extra_blob=None):
@@ -176,13 +203,28 @@ def cmd_pragmas(args):
     return 0
 
 
+def cmd_ir(args):
+    findings, blob = _run_ir(args)
+    errors, warnings = _emit(findings, args, blob)
+    if args.write_fingerprints:
+        print(f"[analyze] fingerprints blessed -> {blob['blessed_path']} "
+              f"({len(blob['ir_cases'])} case(s))")
+        return 0
+    return _ratchet_gate(errors, warnings, args.baseline)
+
+
 def cmd_report(args):
     from repro_torch.analysis.findings import save_baseline
     findings, graph, sites, ledger = _lint_findings()
     findings = (findings + _artifact_findings() + _coverage_findings()
                 + _stats_findings())
-    errors, warnings = _emit(findings, args,
-                             {"traced_functions": len(graph.traced)})
+    extra = {"traced_functions": len(graph.traced)}
+    if args.ir != "off":
+        args.smoke = args.ir == "smoke"
+        ir_findings, ir_blob = _run_ir(args)
+        findings += ir_findings
+        extra.update(ir_blob)
+    errors, warnings = _emit(findings, args, extra)
     if args.update_baseline:
         path = save_baseline(errors, args.baseline)
         print(f"[analyze] baseline blessed -> {path} "
@@ -239,6 +281,38 @@ def main(argv=None):
     p.add_argument("--json", help="write the pragma table to this path")
     p.set_defaults(fn=cmd_pragmas)
 
+    def ir_flags(p):
+        p.add_argument("--mesh", action="append",
+                       help="mesh spec leg (repeatable); 'single' or "
+                            "omit = 1 device")
+        p.add_argument("--families", help="comma-separated family subset")
+        p.add_argument("--schedulers", help="comma-separated scheduler "
+                                            "subset")
+        p.add_argument("--dtypes", help="comma-separated dtype subset")
+        p.add_argument("--smoke", action="store_true",
+                       help="one-family bf16 single-device smoke subset")
+        p.add_argument("--no-cache", action="store_true",
+                       help="retrace even when .ir_cache/ has a summary")
+        p.add_argument("--cache-dir", help="summary cache dir "
+                                           "(default .ir_cache/)")
+        p.add_argument("--write-fingerprints", action="store_true",
+                       help="bless the traced programs into "
+                            "src/repro_torch/analysis/ir_fingerprints.json "
+                            "(exit 0)")
+        p.add_argument("--fingerprints",
+                       help="fingerprint file (default "
+                            "src/repro_torch/analysis/ir_fingerprints.json)")
+
+    p = sub.add_parser("ir",
+                       help="IR program contracts (IR000-IR005) over the "
+                            "traced config matrix")
+    p.add_argument("--json", help="write findings + IR report JSON")
+    p.add_argument("--baseline",
+                   help="ratchet file (default "
+                        "src/repro_torch/analysis/baseline.json)")
+    ir_flags(p)
+    p.set_defaults(fn=cmd_ir)
+
     p = sub.add_parser("report",
                        help="all checks + the committed-baseline ratchet "
                             "gate")
@@ -248,13 +322,11 @@ def main(argv=None):
                         "src/repro_torch/analysis/baseline.json)")
     p.add_argument("--update-baseline", action="store_true",
                    help="bless the current error findings as the new floor")
+    p.add_argument("--ir", choices=("off", "smoke", "full"), default="off",
+                   help="also run the IR matrix leg (default off)")
+    ir_flags(p)
     p.set_defaults(fn=cmd_report)
 
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if next((a for a in argv if not a.startswith("-")), None) == "ir":
-        ap.error("`ir` (the reference's IR000-IR005 over traced programs) "
-                 "is not ported yet: the port's counterpart will run over "
-                 "its dry run (launch/dryrun.py)")
     args = ap.parse_args(argv)
     if args.cmd is None:
         if args.list_pragmas:

@@ -1,0 +1,10 @@
+"""moonshot-v1-16b-a3b (Moonlight-16B-A3B) [moe] — 48L, 64 experts top-6.
+[hf:moonshotai/Moonlight-16B-A3B]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="moonshot-v1-16b-a3b", family="moe",
+    num_layers=48, d_model=2048, num_heads=16, num_kv_heads=16,
+    d_ff=1408, vocab_size=163840, rope_theta=50000.0,
+    num_experts=64, experts_per_token=6,
+)

@@ -48,6 +48,12 @@ class ExecutionContext:
     #: the dry run's op counter (``launch.step_stats.count_step``): each K1
     #: product, two-operand einsum and K2 call is counted as one unit
     counter: Optional[object] = None
+    #: 16-bit products whose partial sums cross shards return them in bf16,
+    #: so the cross-shard all-reduce runs in bf16 instead of f32 (each
+    #: shard still accumulates in f32): a K-split ``matmul`` of bf16
+    #: operands with no bias or activation (``distributed.ops.matmul``) and
+    #: an ``einsum`` of 16-bit operands
+    bf16_partials: bool = False
 
 
 _TLS = threading.local()
@@ -159,6 +165,9 @@ def _gemm_op_setup(ctx, inputs, output):
 def _gemm_op_backward(ctx, dz):
     """dX = dZ @ w.T reads ``w`` K-major, no copy; dW = x.T @ dZ copies
     x.T, since the kernel reads its left operand with unit stride over K.
+    Both products return their operands' dtype, cast to the input's or
+    the weight's after, as the reference's transposed dots do: an f32
+    product (the unembed's f32 cotangent) never returns bf16.
     A bf16 dW whose M (its K) is not a multiple of 8 (vlm's cross K/V over
     4 x 1601 image tokens) pads x.T and dZ with zero rows to one: the bf16
     kernels read rows in 16-byte chunks, so the product stays on them
@@ -170,7 +179,7 @@ def _gemm_op_backward(ctx, dz):
     dx = dw = db = None
     if ctx.needs_input_grad[0]:
         with record_function("matmul.dX"):
-            dx = prod(dz_p, w.to(pdt).t(), out_dtype=x2.dtype)
+            dx = prod(dz_p, w.to(pdt).t(), out_dtype=pdt).to(x2.dtype)
     if ctx.needs_input_grad[1]:
         with record_function("matmul.dW"):
             xt = x2.to(pdt).t()
@@ -178,7 +187,7 @@ def _gemm_op_backward(ctx, dz):
             if pad:
                 xt = torch.nn.functional.pad(xt, (0, pad))
                 dz_p = torch.nn.functional.pad(dz_p, (0, 0, 0, pad))
-            dw = prod(xt.contiguous(), dz_p, out_dtype=w.dtype)
+            dw = prod(xt.contiguous(), dz_p, out_dtype=pdt).to(w.dtype)
     if ctx.needs_input_grad[2]:
         db = dz.float().sum(0).to(bias_dtype)
     return dx, dw, db, None, None, None
@@ -282,18 +291,24 @@ def einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
     operands are upcast, so the contraction sums in f32.  A plain product
     outside any kernel of this package, like the reference's XLA dot.
     Two operands of which one is a DTensor contract on each rank's local
-    shards (``distributed.ops.einsum``).
+    shards (``distributed.ops.einsum``).  Under ``bf16_partials`` 16-bit
+    operands give a bf16 result (the reference's
+    ``preferred_element_type=bfloat16``).
     """
     if len(operands) == 2 and any(isinstance(o, DTensor) for o in operands):
         from repro_torch.distributed import ops as dops
         return dops.einsum(subscripts, *operands, local_einsum=einsum)
-    counter = _ctx().counter
-    if counter is not None:
-        return counter.unit(lambda: _einsum(subscripts, *operands),
-                            "repro_torch.einsum", functools.reduce(
-                                torch.promote_types,
-                                [o.dtype for o in operands]), operands)
-    return _einsum(subscripts, *operands)
+    ctx = _ctx()
+    bf16 = ctx.bf16_partials and all(o.element_size() <= 2 for o in operands)
+
+    def run():
+        out = _einsum(subscripts, *operands)
+        return out.to(torch.bfloat16) if bf16 else out
+
+    if ctx.counter is not None:
+        return ctx.counter.unit(run, "repro_torch.einsum", functools.reduce(
+            torch.promote_types, [o.dtype for o in operands]), operands)
+    return run()
 
 
 def _einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:

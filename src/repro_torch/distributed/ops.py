@@ -127,7 +127,9 @@ def matmul(x, w, *, bias, activation, out_dtype,
     * ``w`` split on N (column): the output is split on its last dim;
     * ``w`` split on K (row): ``x`` is split on K to match (a local block
       of a replicated ``x``), and the partial products are summed across
-      the dim (the bias and the activation follow the sum).
+      the dim (the bias and the activation follow the sum), in f32, or in
+      bf16 under ``execution_context(bf16_partials=True)`` where both
+      operands are bf16 and there is no bias or activation.
     """
     mesh = mesh_of(x, w)
     x, w = as_dtensor(x, mesh), as_dtensor(w, mesh)
@@ -164,8 +166,14 @@ def matmul(x, w, *, bias, activation, out_dtype,
     xl = x.to_local(grad_placements=xg)
     wl = w.to_local(grad_placements=wg)
     if partial:
+        # bf16_partials: a bf16 product with nothing after the sum returns
+        # its partial sums in bf16, and the all-reduce moves half the bytes
+        from repro_torch.core.gemm_api import _ctx
+        pdt = (torch.bfloat16 if _ctx().bf16_partials and bias is None
+               and activation is None and xl.dtype == torch.bfloat16
+               and wl.dtype == torch.bfloat16 else torch.float32)
         z = _wrap(local_matmul(xl, wl, bias=None, activation=None,
-                               out_dtype=torch.float32), mesh, outp, shape)
+                               out_dtype=pdt), mesh, outp, shape)
         _record(x, w, xl, wl)
         if bias is not None:
             z = z + as_dtensor(bias, mesh).float()

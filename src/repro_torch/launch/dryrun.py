@@ -41,6 +41,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
 from repro_torch.configs.catalog import ARCHITECTURES, get_config
+from repro_torch.core.gemm_api import execution_context
 from repro_torch.distributed import ctx as dctx
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch import specs as specs_mod
@@ -54,10 +55,6 @@ from repro_torch.train import trainer as tr
 
 RESULTS_DEFAULT = "results/torch_dryrun.json"
 MESHES = ("single", "multi", "device")
-BF16_PARTIALS_MISSING = (
-    "--bf16-partials is not ported: the port's products on sharded "
-    "operands reduce their partial sums in f32 (distributed/ops.py); the "
-    "reference's bf16 partials live in its core/gemm_api.py")
 
 
 def _fake(tree):
@@ -86,12 +83,15 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
                attn_p_dtype: Optional[str] = None,
                remat_policy: Optional[str] = None,
                kv_quant: bool = False, sites: bool = False,
-               fake: bool = True):
+               fake: bool = True, bf16_partials: bool = False,
+               program: bool = False):
     """Trace the cell's step once on fake tensors, on ``mesh`` (None: one
     device) under ``rules`` (default ``rules_for_mesh(mesh)``); ``fake=
-    False`` runs it on real CPU tensors instead (small cells).  Returns
-    (``StepStats`` of this rank, meta: the step kind, parameter counts,
-    model flops and the ``memory`` record)."""
+    False`` runs it on real CPU tensors instead (small cells).
+    ``bf16_partials`` runs it under ``execution_context(bf16_partials=
+    True)``; ``program`` keeps the IR checks' record (``count_step``).
+    Returns (``StepStats`` of this rank, meta: the step kind, parameter
+    counts, model flops and the ``memory`` record)."""
     if logit_chunk is not None:
         cfg = dataclasses.replace(cfg, logit_chunk=logit_chunk)
     if attn_p_dtype is not None:
@@ -134,7 +134,8 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
                                 sh.batch_shardings)["t"]
                 args = (params, tokens, cache, shape.seq_len - 1)
                 step = tr.make_decode_step(model)
-        with policy, count_step(args, sites=sites) as stats:
+        with policy, execution_context(bf16_partials=bf16_partials), \
+                count_step(args, sites=sites, program=program) as stats:
             out = step(*args)
             del out
     meta = model_flops_of(model, shape, kind)
@@ -184,7 +185,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
              sequence_parallel: bool = False,
              attn_p_dtype: Optional[str] = None,
              remat_policy: Optional[str] = None,
-             kv_quant: bool = False, reduced: bool = False) -> dict:
+             kv_quant: bool = False, reduced: bool = False,
+             bf16_partials: bool = False) -> dict:
     """One cell's record (:func:`cell_record`; SKIP for long_500k on a
     pure full-attention arch).  ``reduced`` traces the arch's ``reduced()``
     config (a quick check of the sharding path)."""
@@ -203,7 +205,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     rec = cell_record(cfg.reduced() if reduced else cfg, shape, mesh, rules,
                       arch=arch, mesh_name=mesh_name,
                       logit_chunk=logit_chunk, attn_p_dtype=attn_p_dtype,
-                      remat_policy=remat_policy, kv_quant=kv_quant)
+                      remat_policy=remat_policy, kv_quant=kv_quant,
+                      bf16_partials=bf16_partials)
     rec["reduced"] = reduced
     return rec
 
@@ -221,7 +224,7 @@ def main(argv=None) -> None:
     ap.add_argument("--attn-p-dtype", default=None,
                     help="e.g. bfloat16 (halves the attention P buffer)")
     ap.add_argument("--bf16-partials", action="store_true",
-                    help="not ported (refused)")
+                    help="bf16 cross-shard matmul reductions")
     ap.add_argument("--remat-policy", default=None, choices=["full", "dots"])
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache (decode memory-term optimization)")
@@ -234,8 +237,6 @@ def main(argv=None) -> None:
     ap.add_argument("--force", action="store_true", help="recompute existing")
     ap.add_argument("--list", action="store_true")
     args = ap.parse_args(argv)
-    if args.bf16_partials:
-        ap.error(BF16_PARTIALS_MISSING)
 
     archs = [args.arch] if args.arch else list(ARCHITECTURES)
     shapes = [args.shape] if args.shape else list(SHAPES)
@@ -273,7 +274,8 @@ def main(argv=None) -> None:
                                        attn_p_dtype=args.attn_p_dtype,
                                        remat_policy=args.remat_policy,
                                        kv_quant=args.kv_quant,
-                                       reduced=args.reduced)
+                                       reduced=args.reduced,
+                                       bf16_partials=args.bf16_partials)
                         if args.tag:
                             rec["tag"] = args.tag
                     except Exception as e:

@@ -212,6 +212,14 @@ def _fake_mesh(shape, axes, rank: int) -> DeviceMesh:
     return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
 
 
+def make_fake_mesh(spec: str, *, rank: int = 0) -> DeviceMesh:
+    """The mesh of a ``--mesh`` spec (``"data=4,model=2"``) as rank
+    ``rank`` of a fake process group: what the IR checker traces a mesh
+    case on."""
+    sizes = parse_mesh_spec(spec)
+    return _fake_mesh(tuple(sizes.values()), tuple(sizes), rank)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          rank: int = 0) -> DeviceMesh:
     """The reference's production mesh, as rank ``rank`` of a fake process

@@ -38,6 +38,13 @@ its operands' dtype and its bytes are its operands and result; what its
 plain version does inside on the CPU (f32 upcasts, masked score blocks,
 the inner ``aten.mm``) is not counted again.
 
+``program=True`` also keeps what the IR checks (``analysis/ir``) read
+of the step, as a :class:`ProgramRecord` in ``StepStats.program``: every
+collective, dtype conversion and product as a record, the float64 values,
+and the canonical op sequence (each counted op's name with its inputs'
+and outputs' dtypes and shapes) as a hash and a histogram.  The record is
+not part of ``StepStats.record()``.
+
 On a mesh a step's ops are dispatched twice, once on DTensors and once on
 each rank's local tensors; only the local ones are counted, so every
 number is this rank's.  ``sites=True`` also splits the product flops by
@@ -50,6 +57,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import os
 import re
 import sys
@@ -62,7 +70,7 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-from repro_torch.core.gemm_api import execution_context
+from repro_torch.core.gemm_api import _ctx, execution_context
 
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                   "collective-permute")
@@ -136,6 +144,37 @@ def flash_pairs(s: int, skv: int, causal: bool) -> int:
 
 
 @dataclasses.dataclass
+class ProgramRecord:
+    """What the IR checks read of one counted step (``count_step(...,
+    program=True)``); ops inside a unit are the plain version's, not the
+    card's, and are not recorded."""
+    #: each collective: {"op", "numel", "bytes", "dims"}, ``dims`` the
+    #: result's shape on this rank
+    collectives: List[dict] = dataclasses.field(default_factory=list)
+    #: each dtype conversion, explicit (``_to_copy``, ``copy_`` across
+    #: dtypes) or a pointwise op's promotion of an input:
+    #: {"src", "dst", "numel", "dims"}
+    converts: List[dict] = dataclasses.field(default_factory=list)
+    #: each product (K1 and einsum units, ATen products): {"lhs", "rhs",
+    #: "out"} dtypes
+    dots: List[dict] = dataclasses.field(default_factory=list)
+    #: float64 tensors among the counted ops' inputs and outputs
+    f64_values: int = 0
+    #: sha256 of the canonical op sequence
+    program_hash: str = ""
+    #: counted ops by name
+    prim_histogram: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: the collectives dispatched inside :func:`loop_body` scopes (the
+    #: decode steps of a serve loop)
+    loop_collectives: List[dict] = dataclasses.field(default_factory=list)
+
+
+def _sig(tensors) -> str:
+    return ",".join(f"{_dtype_name(t.dtype)}[{'x'.join(map(str, t.shape))}]"
+                    for t in tensors)
+
+
+@dataclasses.dataclass
 class StepStats:
     flops: float = 0.0
     flops_by_dtype: Dict[str, float] = dataclasses.field(
@@ -156,6 +195,7 @@ class StepStats:
     #: (result bytes, collective, local shape, group size), largest first
     top_collectives: List[tuple] = dataclasses.field(default_factory=list)
     flops_by_site: Optional[Dict[str, float]] = None
+    program: Optional[ProgramRecord] = None
 
     def record(self) -> dict:
         """The dry run's ``step_stats`` entry (JSON-friendly)."""
@@ -163,6 +203,7 @@ class StepStats:
         out["top_collectives"] = [list(c) for c in self.top_collectives]
         if self.flops_by_site is None:
             del out["flops_by_site"]
+        del out["program"]
         return out
 
 
@@ -170,10 +211,15 @@ class StepCounter(TorchDispatchMode):
     """The dispatch mode behind :func:`count_step`; the ambient
     ``ExecutionContext.counter`` its units report to."""
 
-    def __init__(self, stats: StepStats, sites: bool = False):
+    def __init__(self, stats: StepStats, sites: bool = False,
+                 program: bool = False):
         super().__init__()
         self.stats = stats
         self.sites = sites
+        if program:
+            stats.program = ProgramRecord()
+        self._seq = hashlib.sha256()
+        self.in_loop = False          # inside a loop_body() scope
         self._hist: collections.Counter = collections.Counter()
         self._site_flops: collections.Counter = collections.Counter()
         self._live: Dict[int, int] = {}
@@ -233,9 +279,17 @@ class StepCounter(TorchDispatchMode):
         finally:
             self._unit_dtype = None
         outs = _tensors(out)
+        ins = _tensors(inputs)
         self._hist[name] += 1
         self.stats.traffic_bytes += (
-            sum(map(_nbytes, _tensors(inputs))) + sum(map(_nbytes, outs)))
+            sum(map(_nbytes, ins)) + sum(map(_nbytes, outs)))
+        prog = self.stats.program
+        if prog is not None:
+            self._sequence(name, ins, outs)
+            if flash is None:
+                prog.dots.append({"lhs": _dtype_name(ins[0].dtype),
+                                  "rhs": _dtype_name(ins[1].dtype),
+                                  "out": _dtype_name(outs[0].dtype)})
         for t in outs:
             self._hold(t)
         if flash is not None:
@@ -258,20 +312,72 @@ class StepCounter(TorchDispatchMode):
         if ns in _QUIET_NAMESPACES or name in _QUIET_OPS:
             return out
         outs = _tensors(out)
-        if ns in _COLLECTIVE_NAMESPACES and name in _COLLECTIVES:
-            self._collective(_COLLECTIVES[name], args, outs)
+        collective = (_COLLECTIVES.get(name)
+                      if ns in _COLLECTIVE_NAMESPACES else None)
+        if collective is not None:
+            self._collective(collective, args, outs)
         else:
             self._product(func, args, kwargs, out)
         if self._unit_dtype is not None:
             return out                  # the unit counts its own bytes
         self._hist[f"{ns}.{name}"] += 1
+        ins = [x for x in inputs if isinstance(x, torch.Tensor)]
+        if self.stats.program is not None:
+            self._program(func, f"{ns}.{name}", collective, ins, outs)
         if not func.is_view:
-            ins = [x for x in inputs if isinstance(x, torch.Tensor)]
             self.stats.traffic_bytes += (sum(map(_nbytes, ins))
                                          + sum(map(_nbytes, outs)))
             for t in outs:
                 self._hold(t)
         return out
+
+    # -- the IR checks' record ---------------------------------------------
+    def _sequence(self, name: str, ins, outs) -> None:
+        """One op of the canonical sequence: its name, its inputs' and
+        outputs' dtypes and shapes."""
+        prog = self.stats.program
+        prog.f64_values += sum(t.dtype == torch.float64
+                               for t in (*ins, *outs))
+        self._seq.update(f"{name}({_sig(ins)})->({_sig(outs)});".encode())
+
+    def _program(self, func, name: str, collective: Optional[str], ins,
+                 outs) -> None:
+        prog = self.stats.program
+        self._sequence(name, ins, outs)
+        if collective is not None and outs:
+            rec = {"op": collective, "numel": outs[0].numel(),
+                   "bytes": _nbytes(outs[0]),
+                   "dims": [int(d) for d in outs[0].shape]}
+            prog.collectives.append(rec)
+            if self.in_loop:
+                prog.loop_collectives.append(rec)
+        elif (f"{func.namespace}::{func._opname}" == _GEMM_OP
+              or func.overloadpacket in flop_registry) and outs:
+            a, b = ins[:2] if name == "repro_torch.gemm" else ins[-2:]
+            prog.dots.append({"lhs": _dtype_name(a.dtype),
+                              "rhs": _dtype_name(b.dtype),
+                              "out": _dtype_name(outs[0].dtype)})
+        elif func._opname == "_to_copy" or (
+                func._opname == "copy_" and len(ins) == 2):
+            src, dst = (ins[1], ins[0]) if func._opname == "copy_" else (
+                ins[0], outs[0])
+            self._convert(src.dtype, dst)
+        elif torch.Tag.pointwise in func.tags and outs:
+            dst = outs[0]
+            for t in ins:
+                if (t.dtype != dst.dtype and t.dtype.is_floating_point
+                        and dst.dtype.is_floating_point):
+                    self._convert(t.dtype, t, dst.dtype)
+
+    def _convert(self, src: torch.dtype, dst: torch.Tensor,
+                 dst_dtype: Optional[torch.dtype] = None) -> None:
+        """A conversion from ``src`` to ``dst_dtype`` (default ``dst``'s)
+        of a tensor of ``dst``'s shape."""
+        dst_dtype = dst_dtype or dst.dtype
+        if src != dst_dtype:
+            self.stats.program.converts.append({
+                "src": _dtype_name(src), "dst": _dtype_name(dst_dtype),
+                "numel": dst.numel(), "dims": [int(d) for d in dst.shape]})
 
     def _product(self, func, args, kwargs, out) -> None:
         if f"{func.namespace}::{func._opname}" == _GEMM_OP:
@@ -309,6 +415,9 @@ class StepCounter(TorchDispatchMode):
     def finish(self) -> None:
         s = self.stats
         s.op_histogram = dict(self._hist.most_common())
+        if s.program is not None:
+            s.program.program_hash = self._seq.hexdigest()
+            s.program.prim_histogram = dict(sorted(self._hist.items()))
         if self.sites:
             s.flops_by_site = dict(self._site_flops.most_common())
         for b, sq, skv, h, d, causal in self._flash:
@@ -334,14 +443,15 @@ def _group_size(args) -> int:
 
 
 @contextlib.contextmanager
-def count_step(*arg_trees, sites: bool = False):
+def count_step(*arg_trees, sites: bool = False, program: bool = False):
     """Count the ops dispatched in this scope into the yielded
     :class:`StepStats` (filled when the scope closes).  ``arg_trees``:
     the step's arguments (state, batch, cache), live from the start.
     ``sites`` also splits product flops by model function, with autograd's
-    anomaly mode on so that a backward product finds its forward's."""
+    anomaly mode on so that a backward product finds its forward's;
+    ``program`` keeps the IR checks' :class:`ProgramRecord`."""
     stats = StepStats()
-    counter = StepCounter(stats, sites)
+    counter = StepCounter(stats, sites, program)
     counter.track(arg_trees)
     stats.argument_bytes = counter._live_bytes
     anomaly = (torch.autograd.set_detect_anomaly(True, check_nan=False)
@@ -351,3 +461,19 @@ def count_step(*arg_trees, sites: bool = False):
             yield stats
     finally:
         counter.finish()
+
+
+@contextlib.contextmanager
+def loop_body():
+    """Mark the ops of this scope as one iteration of a loop body (a serve
+    loop's decode step) for the ambient counter's :class:`ProgramRecord`;
+    nothing without one."""
+    counter = _ctx().counter
+    if not isinstance(counter, StepCounter):
+        yield
+        return
+    outer, counter.in_loop = counter.in_loop, True
+    try:
+        yield
+    finally:
+        counter.in_loop = outer

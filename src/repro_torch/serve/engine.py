@@ -791,12 +791,39 @@ class Engine:
         self._plen_buckets.add(plen)
         self._record_prefill_flash_tiles(plen)
         t0 = time.perf_counter()
+        logits0, cache = self._prefill_wave(batch, cache)
+        t1 = time.perf_counter()
+        host = self._decode_loop(logits0, cache, kv_start, budget, plen,
+                                 width, need)
+        t2 = time.perf_counter()
+        self._stats["device_transfers"] += 1
+        self._stats["waves"] += 1
+        self._stats["prefill_seconds"] += t1 - t0
+        self._stats["decode_seconds"] += t2 - t1
+        now = time.perf_counter()
+        for r in wave:
+            n = int(host[r.slot, width])
+            r.tokens = []
+            # every token of a wave becomes host-visible at its transfer
+            self._emit(r, [int(t) for t in host[r.slot, :n]], now)
+            self._finish_request(r, self._finish_reason(r.tokens)
+                                 or api.FINISH_LENGTH, now)
+
+    def _prefill_wave(self, batch, cache):
+        """The wave's prefill: (the last position's (B, V) logits, cache)."""
         with annotate("serve.prefill_wave"):
             logits0, cache = self.model.prefill(self.params,
                                                 self._place(batch), cache)
             logits0 = sh.full(logits0)
             self._sync_if_profiling()
-        t1 = time.perf_counter()
+        return logits0, cache
+
+    def _decode_loop(self, logits0, cache, kv_start, budget, plen: int,
+                     width: int, need: int) -> np.ndarray:
+        """The wave's ``need`` decode steps from the prefill's logits, the
+        tokens into a (B, width) buffer.  Returns its host copy with each
+        row's count in the last column: the wave's one transfer."""
+        b = self.cfg.max_batch
         with annotate("serve.decode_wave"):
             cur = self._sample(logits0)
             done = budget <= 0                 # empty slots start finished
@@ -823,19 +850,7 @@ class Engine:
             # The ONE device-to-host transfer of this wave.
             # analysis: allow(TP001)
             host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
-        t2 = time.perf_counter()
-        self._stats["device_transfers"] += 1
-        self._stats["waves"] += 1
-        self._stats["prefill_seconds"] += t1 - t0
-        self._stats["decode_seconds"] += t2 - t1
-        now = time.perf_counter()
-        for r in wave:
-            n = int(host[r.slot, width])
-            r.tokens = []
-            # every token of a wave becomes host-visible at its transfer
-            self._emit(r, [int(t) for t in host[r.slot, :n]], now)
-            self._finish_request(r, self._finish_reason(r.tokens)
-                                 or api.FINISH_LENGTH, now)
+        return host
 
     # -- continuous drain: admit/evict at chunk boundaries ----------------------
     def _run_continuous(self, extra_inputs=None) -> List[_Request]:

@@ -609,7 +609,7 @@ def test_cli_exits_1_on_a_new_finding(tmp_path):
     assert proc.returncode == 0 and "7 live, 0 stale" in proc.stdout
 
 
-@pytest.mark.parametrize("args", [["ir"], ["lint", "--bogus"], []])
+@pytest.mark.parametrize("args", [["ir", "--bogus"], ["lint", "--bogus"], []])
 def test_cli_usage_errors_exit_2(args):
     proc = _cli(args)
     assert proc.returncode == 2, proc.stdout + proc.stderr

@@ -178,17 +178,42 @@ def test_advice_speaks_of_the_h100():
     assert "NVLink" in roofline._ADVICE["collective"]
 
 
+_BF16_PARTIALS = """
+import dataclasses, json, logging
+logging.disable(logging.WARNING)
+from repro_torch.configs.base import SHAPES
+from repro_torch.configs.catalog import get_config
+from repro_torch.launch.dryrun import lower_cell
+from repro_torch.launch.mesh import end_fake_world, make_host_mesh
+mesh = make_host_mesh(4, 2)
+cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                          dtype="bfloat16")
+out = []
+for flag in (False, True):
+    st, _ = lower_cell(cfg, SHAPES["prefill_32k"], mesh, bf16_partials=flag,
+                       program=True)
+    rec = st.record()
+    rec["collective_records"] = st.program.collectives
+    out.append(rec)
+end_fake_world()
+print("RESULT " + json.dumps(out))
+"""
+
+
 def test_dryrun_and_roofline_clis(tmp_path, capsys):
     """``dryrun --reduced`` traces a cell on both production meshes (in a
     process of its own: the fake process group is process-wide) and on
-    one device, SKIPs long_500k on a full-attention arch, refuses
-    ``--bf16-partials``; ``roofline`` renders the OK cells on h100."""
+    one device, SKIPs long_500k on a full-attention arch, takes
+    ``--bf16-partials``; ``roofline`` renders the OK cells on h100.
+    ``bf16_partials`` on a reduced bf16 prefill cell on the fake
+    data=4,model=2 mesh halves the bytes of the K-split products'
+    all-reduces (f32 -> bf16 partial sums) and changes no other count."""
     from repro_torch.launch import dryrun
-    with pytest.raises(SystemExit) as exc:
-        dryrun.main(["--bf16-partials"])
-    assert exc.value.code == 2
-    assert "--bf16-partials is not ported" in capsys.readouterr().err
-    dryrun.main(["--list", "--arch", "yi-9b"])
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    partials = subprocess.Popen(
+        [sys.executable, "-c", _BF16_PARTIALS], cwd=tmp_path,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    dryrun.main(["--bf16-partials", "--list", "--arch", "yi-9b"])
     assert capsys.readouterr().out.split("\n")[:4] == [
         f"yi-9b x {s}" for s in base.SHAPES]
     res = tmp_path / "dry.json"
@@ -196,8 +221,28 @@ def test_dryrun_and_roofline_clis(tmp_path, capsys):
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--reduced",
          "--arch", "llama3.2-1b", "--shape", "train_4k", "--mesh", "both",
          "--out", str(res)], cwd=tmp_path, capture_output=True, text=True,
-        timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+        timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr[-2000:]
+    stdout, stderr = partials.communicate(timeout=300)
+    assert partials.returncode == 0, stderr[-2000:]
+    off, on = json.loads([ln for ln in stdout.splitlines()
+                          if ln.startswith("RESULT ")][-1][7:])
+    halved = [(a, b) for a, b in zip(off.pop("collective_records"),
+                                     on.pop("collective_records")) if a != b]
+    assert len(halved) == 4                  # wo and w_down, 2 layers
+    for a, b in halved:
+        assert a["op"] == b["op"] == "all-reduce"
+        assert (a["numel"], a["dims"]) == (b["numel"], b["dims"])
+        assert a["bytes"] == 2 * b["bytes"] == 4 * a["numel"]
+    cut = sum(a["bytes"] - b["bytes"] for a, b in halved)
+    assert on["collective_result_bytes"]["all-reduce"] == \
+        off["collective_result_bytes"]["all-reduce"] - cut
+    for key in ("flops", "flops_by_dtype", "dot_count", "collective_count",
+                "flash_flops", "flash_calls", "argument_bytes"):
+        assert on[key] == off[key], key
+    for op, nbytes in off["collective_result_bytes"].items():
+        if op != "all-reduce":
+            assert on["collective_result_bytes"][op] == nbytes, op
     for argv in (["--arch", "llama3.2-1b", "--shape", "long_500k",
                   "--mesh", "single"],
                  ["--arch", "mamba2-130m", "--shape", "long_500k",
