@@ -146,8 +146,8 @@ Phases, each printing one JSON line:
    ``examples/torch_quickstart.py`` at full width and depth (a measured
    4096^3 bf16 sweep whose winner the registry then resolves ``exact``,
    its TFLOP/s beside the card's name and power limit; 30 finite train
-   losses with K1 on wgmma 28 a layer + 1 a step, fma 2 a step, no
-   decode, wmma or flash launch; a serve on the decode kernel only),
+   losses with K1 on wgmma 28 a layer + 1 a step, simt 2 a step, no
+   decode, wmma, fma or flash launch; a serve on the decode kernel only),
    ``examples/torch_autotune_and_serve.py`` at full width (two targets
    persisted and reloaded, every captured GEMM shape and the prefill
    flash problem measured into the registry, a serve whose every decode
@@ -168,12 +168,14 @@ Phases, each printing one JSON line:
    equal the first run's bit for bit (``torch.use_deterministic_
    algorithms`` on: index_select's backward adds with atomics).  Launch
    counts from 0 over the 6 steps: every bf16 product, forward, remat
-   recompute, dX and dW, on wgmma (28 a layer + 1 a step), fma exactly at
-   the unembed's two f32-cotangent products a step, no decode, wmma or
-   flash launch.  Finite losses and every gradient leaf finite in every
-   step; step walls, tokens/s, peak memory;
+   recompute, dX and dW, on wgmma (28 a layer + 1 a step), simt exactly
+   at the unembed's two f32-cotangent products a step, no decode, wmma,
+   fma or flash launch.  Finite losses and every gradient leaf finite in
+   every step; step walls, tokens/s, peak memory;
    one bf16 step against the plain versions (``gemm_ref`` under
-   PyTorch's autograd: loss and grad norm within ``TRAIN_BF16_TOL``); one
+   PyTorch's autograd: loss and grad norm within ``TRAIN_BF16_TOL``) and
+   with the unembed's f32 backward on the ``fma`` kernel (``on_fma``: loss
+   and grad norm bit-equal to the simt step's); one
    f32 step at full width and 2 layers against them (loss, metrics, every
    gradient leaf, every parameter after the step within
    ``TRAIN_F32_TOL``); one timed step (CUDA events): K1's device time by
@@ -183,7 +185,7 @@ Phases, each printing one JSON line:
    from the same seed and data under ``remat_policy="dots"`` (K1's
    forward outputs saved, everything else recomputed): losses equal to
    the first run's bit for bit, wgmma at 21 a layer + 1 a step (no remat
-   recompute), fma at 2 a step, none of K1's launches in a ``k1_split``
+   recompute), simt at 2 a step, none of K1's launches in a ``k1_split``
    step a ``forward_recompute``; its walls and peak memory beside the
    first run's.  Then one more warm step under
    ``repro_torch.profiling.trace``, emitted as a ``train_profile`` line
@@ -235,8 +237,10 @@ out_proj, the shared block's projections and MLP, the unembed at N =
 160) and zamba2-2.7b's head dim 80, (8, 256, 32, 32, 80); and the train
 phase's products at M = 4096: each projection's forward (the gate's
 without SiLU, f32 out), dX (B K-major) and dW (K = 4096), the tied
-unembed's forward and its two f32 backward products (fma); and the same
-for the other train phases (whisper at 8 x 1500 encoder and 8 x 512
+unembed's forward and its two f32 backward products (simt, f32 out, each
+held bit for bit against an ``fma`` launch and timed beside it; a
+``train_unembed_f32`` line sums each train phase's two); and the same for
+the other train phases (whisper at 8 x 1500 encoder and 8 x 512
 decoder rows, mamba2, zamba2, the vlm at 4 x 512 and its cross K/V at 4
 x 1601 image tokens), with each unembed at N 51866 / 50280 / 32000 /
 128256.
@@ -290,7 +294,7 @@ def smi() -> str:
 
 #: the port's kernels by their device names: K1's four paths, K2's two
 K1_NAMES = ("gemm_wgmma_kernel", "gemm_decode_kernel", "gemm_bf16_kernel",
-            "gemm_f32_kernel")
+            "gemm_simt_kernel", "gemm_f32_kernel")
 K2_NAMES = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")
 
 
@@ -550,7 +554,8 @@ def gemm_cases(torch):
     # forward (the gate runs without its SiLU, f32 out: the autograd
     # Function keeps the pre-activation), then dX = dZ @ W.T (B K-major)
     # and dW = X.T @ dZ (K = 4096) of each projection; the unembed's
-    # backward products take its f32 cotangent on f32 operands (fma).
+    # backward products take its f32 cotangent on f32 operands and return
+    # f32, cast after (simt).
     mt = 8 * 512
     for name, k, n, out in (("q/o", d, d, bf), ("k/v", d, kvd, bf),
                             ("gate (f32 pre-activation)", d, ff, f32),
@@ -564,9 +569,9 @@ def gemm_cases(torch):
     cases.append(("train fwd unembed (tied, B=emb.T, f32 out)", mt, d, vocab,
                   bf, True, None, f32, False, True))
     cases.append(("train unembed dX (f32 cotangent)", mt, vocab, d, f32,
-                  False, None, bf, False, True))
+                  False, None, f32, False, True))
     cases.append(("train unembed dW (f32 cotangent)", d, mt, vocab, f32,
-                  False, None, bf, False, True))
+                  False, None, f32, False, True))
     # the other train phases' products, each as above: whisper at 8 x 1500
     # encoder rows (its cross K/V projections have the q/k/v/o shape) and 8
     # x 512 decoder rows, biased; mamba2 and zamba2 at 8 x 512; the vlm at
@@ -608,9 +613,9 @@ def gemm_cases(torch):
         cases.append((f"{prefix} fwd unembed (f32 out)", m, dd, v, bf,
                       head_kmajor, None, f32, False, True))
         cases.append((f"{prefix} unembed dX (f32 cotangent)", m, v, dd, f32,
-                      not head_kmajor, None, bf, False, True))
+                      not head_kmajor, None, f32, False, True))
         cases.append((f"{prefix} unembed dW (f32 cotangent)", dd, m, v, f32,
-                      False, None, bf, False, True))
+                      False, None, f32, False, True))
     for (name, k, n) in (("k/v", d, kvd), ("down", ff, d)):
         for m in (1, 3, 8, 16):
             cases.append((f"decode edge {name} M={m} silu", m, k, n, bf,
@@ -656,6 +661,7 @@ def resolve(op, dtype, shape):
 
 
 def run_gemm_case(torch, timers, case, gen):
+    from repro_torch.core.tile_config import TileConfig
     from repro_torch.kernels.gemm import gemm_cuda
     from repro_torch.kernels.ref import gemm_ref
     label, m, k, n, dtype, b_t, act, out_dtype, extras, main = case
@@ -675,8 +681,13 @@ def run_gemm_case(torch, timers, case, gen):
             if v != before[p]][0]
     again = gemm_cuda(a, b, c, config=tile, **kw)
     ref = gemm_ref(a, b, c, **kw)
+    # the simt kernel sums as the fma kernel does: the same bits
+    fma = TileConfig(64, 16, 64, kernel="fma")
+    yard = gemm_cuda(a, b, c, config=fma, **kw) if path == "simt" else None
     torch.cuda.synchronize()
     same_bits = bool(torch.equal(out, again))
+    fma_bits = None if yard is None else bool(torch.equal(out, yard))
+    del yard
     err = (out.float() - ref.float()).abs().max().item()
     # bf16 output: one bf16 ulp (2**-8 relative) of values up to ~4;
     # f32 output: summation order over K only.
@@ -693,12 +704,17 @@ def run_gemm_case(torch, timers, case, gen):
     library = lambda: torch.matmul(a, b)
     kernel_ms = timer(kernel, **reps)
     kernel_device_ms = device_timer(kernel, **reps)
+    extra = {}
+    if fma_bits is not None:
+        extra = {"bit_equal_fma": fma_bits, "fma_device_ms": device_timer(
+            lambda: gemm_cuda(a, b, c, config=fma, **kw), **reps)}
     return {
         "name": "gemm", "replaces": KERNELS[0][3], "case": label,
         "shape": [m, k, n], "dtype": str(dtype).split(".")[1],
         "tile": tile.label, "schedule": tile.schedule, "path": path,
         "source": res.source, "max_abs_err": err, "tol": f"atol=rtol={tol}",
-        "same_bits_twice": same_bits, "ok": bool(ok) and same_bits,
+        "same_bits_twice": same_bits,
+        "ok": bool(ok) and same_bits and fma_bits is not False,
         "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
         "plain_ms": timer(lambda: gemm_ref(a, b, c, **kw), **reps),
         "library_ms": timer(library, **reps),
@@ -706,7 +722,7 @@ def run_gemm_case(torch, timers, case, gen):
         "library": "torch.matmul",
         "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / kernel_ms,
         "share_of_bound_device": b_ms / kernel_device_ms,
-        "main_path": main, "model": model_of(label),
+        "main_path": main, "model": model_of(label), **extra,
     }
 
 
@@ -730,7 +746,9 @@ def model_of(label: str) -> str:
 
 def decode_batch_invariance(torch, gen):
     """Decode rows computed at M = 8 equal the same rows computed alone
-    (M = 1), bit for bit (bf16), at every decode shape of the main path."""
+    (M = 1), bit for bit (bf16), at every decode shape of the main path;
+    f32 rows computed at M = 8 (``fma``, the f32 oracles' decode) equal the
+    same rows inside an M = 300 product (``simt``, their prefill)."""
     from repro_torch.kernels.gemm import gemm_cuda
     rows = []
     for name, k, n, b_t, act, out_dtype in (
@@ -748,6 +766,27 @@ def decode_batch_invariance(torch, gen):
         torch.cuda.synchronize()
         rows.append({"case": f"decode {name} M=8 vs M=1", "shape": [8, k, n],
                      "bit_equal": bool(torch.equal(batch, solo))})
+    for name, k, n, b_t in (("q/o", 2048, 2048, False),
+                            ("unembed (tied)", 2048, 128256, True)):
+        a, b = gemm_operands(torch, gen, 300, k, n, torch.float32, b_t)
+        paths = {}
+
+        def run(x):
+            before = dict(gemm_cuda.launches_by_path)
+            y = gemm_cuda(x, b, config=resolve(
+                "gemm", torch.float32, (x.shape[0], k, n)).config,
+                activation="silu")
+            paths[x.shape[0]] = [p for p, v in gemm_cuda.launches_by_path
+                                 .items() if v != before[p]][0]
+            return y
+        full = run(a)
+        rows8 = run(a[96:104])
+        torch.cuda.synchronize()
+        rows.append({"case": f"f32 {name} M=8 ({paths[8]}) vs M=300 "
+                     f"({paths[300]})", "shape": [300, k, n],
+                     "bit_equal": bool(torch.equal(rows8, full[96:104]))
+                     and paths == {300: "simt", 8: "fma"}})
+        del a, b, full
     return rows
 
 
@@ -893,13 +932,52 @@ def phase_kernels(torch, out_dir):
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
     bad = [r["case"] for r in invariance if not r["bit_equal"]]
     if bad:
-        raise AssertionError(f"decode rows differ between M = 8 and 1: {bad}")
+        raise AssertionError(f"rows differ between batch sizes: {bad}")
     slow = [r["case"] for r in rows if r["main_path"] and r["path"] not in (
-        ("fma",) if r["dtype"] == "float32" else
+        ("simt",) if r["dtype"] == "float32" and r["name"] == "gemm" else
         ("decode", "wgmma") if r["name"] == "gemm" else ("wgmma",))]
     if slow:
         raise AssertionError(f"main-path shapes off the new kernels: {slow}")
+    emit(train_unembed_f32(torch, rows))
     return rows
+
+
+def train_unembed_f32(torch, rows):
+    """The unembed's f32 backward (dX + dW on ``simt``) of each train
+    phase, summed from its two kernels-phase rows: kernel and device ms,
+    the bound, the ``fma`` kernel's device ms on the same operands (the
+    earlier kernel), ``torch.matmul`` f32, the plain version, the share of
+    bound, and whether both products equal ``fma``'s bits."""
+    out = {"phase": "train_unembed_f32", "card": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi(), "phases": {}}
+    for prefix, model in (("train unembed", "llama3.2-1b"),
+                          ("train vlm unembed", "llama-3.2-vision-11b"),
+                          ("train zamba unembed", "zamba2-2.7b"),
+                          ("train whisper unembed", "whisper-large-v3"),
+                          ("train mamba unembed", "mamba2-130m")):
+        two = [r for r in rows if r["case"].startswith(prefix)
+               and "f32 cotangent" in r["case"]]
+        assert len(two) == 2, (prefix, [r["case"] for r in two])
+        tot = {key: sum(r[key] for r in two) for key in (
+            "kernel_ms", "kernel_device_ms", "fma_device_ms", "bound_ms",
+            "library_ms", "library_device_ms", "plain_ms")}
+        tot.update(shapes=[r["shape"] for r in two],
+                   schedules=[r["schedule"] for r in two],
+                   paths=[r["path"] for r in two],
+                   bit_equal_fma=all(r.get("bit_equal_fma") for r in two),
+                   share_of_bound_device=tot["bound_ms"]
+                   / tot["kernel_device_ms"],
+                   vs_library_device=tot["kernel_device_ms"]
+                   / tot["library_device_ms"],
+                   vs_fma_device=tot["kernel_device_ms"]
+                   / tot["fma_device_ms"])
+        out["phases"][model] = tot
+    bad = [m for m, t in out["phases"].items()
+           if t["paths"] != ["simt", "simt"] or not t["bit_equal_fma"]]
+    if bad:
+        raise AssertionError(f"unembed f32 backward off simt or not equal "
+                             f"to fma's bits: {bad}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -908,15 +986,20 @@ def phase_kernels(torch, out_dir):
 
 def hold_schedule(torch, gen, op, cfg, shape, heads=(32, 8)):
     """Launch ``cfg`` at ``shape`` (gemm (m, k, n): B K-major where N is not
-    a multiple of 8, as the models keep such heads; flash (sq, skv, d): 8
-    rows of ``heads``) and hold it against the plain version.  Returns
-    (max abs error, the wrapper took ``cfg``'s kernel)."""
+    a multiple of 8, as the models keep such heads, f32 operands for the
+    f32 kernels; flash (sq, skv, d): 8 rows of ``heads``) and hold it
+    against the plain version.  Returns (max abs error, the wrapper took
+    ``cfg``'s kernel)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.gemm import gemm_cuda
+    from repro_torch.kernels.gemm import F32_KERNELS, gemm_cuda
+    tol = 2e-2
     if op == "gemm":
         m, k, n = shape
-        a, b = gemm_operands(torch, gen, m, k, n, torch.bfloat16, n % 8 != 0)
+        dtype = torch.bfloat16
+        if cfg.kernel in F32_KERNELS:
+            dtype, tol = torch.float32, 1e-4
+        a, b = gemm_operands(torch, gen, m, k, n, dtype, n % 8 != 0)
         fn, counts = gemm_cuda, gemm_cuda.launches_by_path
         before = counts[cfg.kernel]
         got = gemm_cuda(a, b, config=cfg, activation="silu")
@@ -932,8 +1015,9 @@ def hold_schedule(torch, gen, op, cfg, shape, heads=(32, 8)):
         want = ref.flash_attention_ref(q, k, v, kv_start=kv_start)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    # bf16 output: one bf16 ulp of values up to ~4 (as the kernels phase)
-    ok = bool(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2))
+    # bf16 output: one bf16 ulp of values up to ~4 (as the kernels phase);
+    # f32: summation order over K
+    ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
     return err, ok and counts[cfg.kernel] == before + 1
 
 
@@ -973,17 +1057,17 @@ def phase_tuning(torch):
     hand = {(t.kernel, t.bm, t.bk, t.bn, t.stages)
             for rows in H100_GEMM_TILES.values() for *_, t in rows}
     hand |= {(t.kernel, t.bm, t.bk, t.bn, t.stages)
-             for _, t in H100_UNALIGNED_TILES}
+             for rows in H100_UNALIGNED_TILES.values() for _, t in rows}
     hand_flash = {(t.kernel, t.bq, t.bk, t.stages)
                   for rows in H100_FLASH_TILES.values() for *_, t in rows}
     lines = []
-    for kernel in ("decode", "wgmma"):
+    for kernel in ("decode", "wgmma", "simt"):
         for bm, bk, bn, st in sorted(instantiated_schedules()[kernel]):
             if (kernel, bm, bk, bn, st) in hand:
                 continue
             cfg = TileConfig(bm, bk, bn, kernel=kernel, stages=st,
                              split_k=3 if kernel == "decode" else 1,
-                             group_m=3 if kernel == "wgmma" else 1)
+                             group_m=1 if kernel == "decode" else 3)
             shape = (13 if kernel == "decode" else 700, 1000, 1096)
             err, ok = hold_schedule(torch, gen, "gemm", cfg, shape)
             lines.append({"schedule": cfg.schedule, "shape": list(shape),
@@ -1082,7 +1166,8 @@ def phase_serve(torch):
     assert launches["gemm"] > 0 and launches["flash_attention"] > 0, launches
     # every bf16 product of the serve path went through the new kernels
     assert gemm_paths["decode"] > 0 and gemm_paths["wgmma"] > 0, gemm_paths
-    assert gemm_paths["wmma"] == 0 and gemm_paths["fma"] == 0, gemm_paths
+    assert gemm_paths["wmma"] == gemm_paths["fma"] == gemm_paths["simt"] \
+        == 0, gemm_paths
     # and every bf16 prefill attention through the wgmma flash kernel
     assert flash_paths["wgmma"] > 0 and flash_paths["fma"] == 0, flash_paths
     assert st["device_transfers"] == st["chunks"], st
@@ -1402,7 +1487,7 @@ def phase_serve_features(torch, ctx):
         gemm = kernels.gemm_launches_by_path()
         flash = kernels.flash_launches_by_path()
         assert gemm["decode"] > 0 and gemm["wgmma"] > 0, (name, gemm)
-        assert gemm["wmma"] == 0 and gemm["fma"] == 0, (name, gemm)
+        assert gemm["wmma"] == gemm["fma"] == gemm["simt"] == 0, (name, gemm)
         assert flash["wgmma"] > 0 and flash["fma"] == 0, (name, flash)
         stats = [e.stats() for e in engines]
         pre = sum(s["prefill_seconds"] for s in stats)
@@ -1762,7 +1847,8 @@ def serve_runs(torch, out, model, params, prompts, cold, warm, extra=None):
             flash = kernels.flash_launches_by_path()
             st = eng.stats()
             assert gemm["decode"] > 0 and gemm["wgmma"] > 0, (name, gemm)
-            assert gemm["wmma"] == 0 and gemm["fma"] == 0, (name, gemm)
+            assert gemm["wmma"] == gemm["fma"] == gemm["simt"] == 0, \
+                (name, gemm)
             if ssm:
                 assert sum(flash.values()) == 0, (name, flash)
                 assert st["scheduler"] == "wave", (name, st["scheduler"])
@@ -1958,7 +2044,7 @@ def phase_serve_stablelm(torch, ctx):
     assert all(len(o) == 8 and all(0 <= t < cfg.vocab_size for t in o)
                for o in outs)
     assert gemm["decode"] > 0 and gemm["wgmma"] > 0, gemm
-    assert gemm["wmma"] == 0 and gemm["fma"] == 0, gemm
+    assert gemm["wmma"] == gemm["fma"] == gemm["simt"] == 0, gemm
     assert flash["wgmma"] > 0 and flash["fma"] == 0, flash
     assert st["device_transfers"] == st["chunks"], st
     out = {"phase": "serve_stablelm", "card": torch.cuda.get_device_name(0),
@@ -2156,13 +2242,14 @@ def example_quickstart(torch, mod, dev):
     assert res.best.source.startswith("measure") and \
         lookup.source == "exact" and lookup.config == res.best.config, out
     assert steps == 30 and all(math.isfinite(x) for x in losses), losses
-    assert g_train["wgmma"] == want and g_train["fma"] == 2 * steps, out
+    assert g_train["wgmma"] == want and g_train["simt"] == 2 * steps, out
+    assert g_train["fma"] == 0, g_train
     assert g_train["decode"] == g_train["wmma"] == 0, g_train
     assert sum(f_train.values()) == 0, f_train
     assert [len(o) for o in outs] == [8, 8] and all(
         0 <= t < cfg.vocab_size for o in outs for t in o), outs
-    assert g_serve["decode"] > 0 and g_serve["wmma"] == g_serve["fma"] == 0, \
-        g_serve
+    assert g_serve["decode"] > 0 and g_serve["wmma"] == g_serve["fma"] \
+        == g_serve["simt"] == 0, g_serve
     return out
 
 
@@ -2201,8 +2288,8 @@ def example_autotune(torch, mod, dev):
         "measure"), out
     assert st["decode_tile_lookups"] and st["prefill_flash_lookups"], out
     assert not out["not_exact"] and out["table_unchanged"], out
-    assert g_serve["wmma"] == g_serve["fma"] == 0 and f_serve["fma"] == 0 \
-        and f_serve["wgmma"] > 0, out
+    assert g_serve["wmma"] == g_serve["fma"] == g_serve["simt"] == 0 and \
+        f_serve["fma"] == 0 and f_serve["wgmma"] > 0, out
     return out
 
 
@@ -2233,7 +2320,8 @@ def example_recovery(torch, mod, dev):
            "gemm_launches_by_path": g, "flash_launches_by_path": f,
            "wgmma_expected": want}
     assert latest == mod.SAVE_AT and diff == 0.0, out
-    assert g["wgmma"] == want and g["fma"] == 2 * steps, out
+    assert g["wgmma"] == want and g["simt"] == 2 * steps, out
+    assert g["fma"] == 0, g
     return out
 
 
@@ -2247,7 +2335,7 @@ def example_prefix_smoke(torch, mod, dev):
     out = {"rc": rc, "prefix_cache": pc, "gemm_launches_by_path": g,
            "flash_launches_by_path": f}
     assert rc == 0, out
-    assert g["wmma"] == g["fma"] == 0 and sum(g.values()) > 0, out
+    assert g["wmma"] == g["fma"] == g["simt"] == 0 and sum(g.values()) > 0, out
     return out
 
 
@@ -2315,7 +2403,7 @@ def phase_examples(torch, ctx):
 #: row, steps, the step whose checkpoint the run resumes from (None: no
 #: resume), the f32 step's depth (``f32_cut``) and K1's wgmma launches a
 #: step for the cut config: every product's forward, remat recompute, dX
-#: and dW, and the unembed's forward (its dX and dW are the step's two fma
+#: and dW, and the unembed's forward (its dX and dW are the step's two simt
 #: launches).  A dense layer has 7 products (28 launches); whisper's
 #: encoder layer 6 (24) and decoder layer 10 with its cross K/V (40); a
 #: Mamba2 layer 2 (8); zamba2's shared block 7 an application (28); a vlm
@@ -2401,6 +2489,16 @@ def plain_matmul(torch):
     stack.enter_context(mock.patch.object(gemm_api, "_grad_needed",
                                           lambda *t: False))
     return stack
+
+
+def on_fma():
+    """A context in which the wrapper sends every f32 product to the
+    ``fma`` kernel (the earlier f32 path and its tile), as it does for
+    operands ``simt``'s vector loads cannot take."""
+    from unittest import mock
+
+    from repro_torch.kernels import gemm
+    return mock.patch.object(gemm, "simt_vector_bytes", lambda *a: 0)
 
 
 def grads_of(torch, model, params, batch):
@@ -2546,9 +2644,9 @@ def phase_train(torch, ctx, phase: str = "train"):
     (vlm, audio).  Its steps through ``Trainer``; with ``save_at``, a
     checkpoint there, then the steps after it again from the checkpoint in
     a fresh state: equal losses and parameters, bit for bit.  K1's launches
-    by path over the steps (every bf16 product on wgmma; fma only at the
-    unembed's two f32-cotangent products a step; K2 none); every gradient
-    leaf finite in every step.  Then one bf16 step against the plain
+    by path over the steps (every bf16 product on wgmma; simt only at the
+    unembed's two f32-cotangent products a step, fma none; K2 none); every
+    gradient leaf finite in every step.  Then one bf16 step against the plain
     versions, one f32 step at ``f32_cut`` against them (loss, every
     gradient leaf, every parameter after the step), and one timed step:
     K1's device time by role (``k1_split``), the GEMM shapes the step
@@ -2706,24 +2804,31 @@ def phase_train(torch, ctx, phase: str = "train"):
             if "dots_wgmma" in spec:
                 out["dots"] = dots_run(torch, cfg, opt, pipe, tcfg(
                     steps, 10 ** 9), tokens, history)
-            # -- one bf16 step: K1 against the plain versions --------------
+            # -- one bf16 step: K1 against the plain versions, and with
+            # the unembed's f32 backward on the fma kernel ----------------
             step = make_train_step(model, opt)
             batch = pipe(0)
             hold = {}
-            for name in ("kernel", "plain"):
+            for name in ("kernel", "fma", "plain"):
                 state = init_train_state(model, opt, 0, device="cuda")
                 kernels.reset_launch_counts()
-                with (plain_matmul(torch) if name == "plain"
-                      else contextlib.nullcontext()):
+                with (plain_matmul(torch) if name == "plain" else
+                      on_fma() if name == "fma" else
+                      contextlib.nullcontext()):
                     new, m = step(state, batch)
                 hold[name] = ({k: float(m[k]) for k in ("loss", "grad_norm")},
-                              kernels.launch_counts()["gemm"])
+                              kernels.launch_counts()["gemm"],
+                              kernels.gemm_launches_by_path())
                 del state, new, m
                 free_card(torch)
             out["bf16_step_vs_plain"] = {
                 "kernel": hold["kernel"][0], "plain": hold["plain"][0],
                 "plain_gemm_launches": hold["plain"][1],
                 "tol_rel": TRAIN_BF16_TOL}
+            out["step_on_fma"] = {
+                "metrics": hold["fma"][0],
+                "bit_equal_simt": hold["fma"][0] == hold["kernel"][0],
+                "gemm_launches_by_path": hold["fma"][2]}
             # -- one timed step: K1 by role, shapes, provenance ------------
             state = init_train_state(model, opt, 0, device="cuda")
             step(state, pipe(1))                         # warm
@@ -2869,11 +2974,16 @@ def phase_train(torch, ctx, phase: str = "train"):
     assert launches["flash_attention"] == 0, flash_paths
     assert gemm_paths["decode"] == 0 and gemm_paths["wmma"] == 0, gemm_paths
     assert gemm_paths["wgmma"] == per_step * steps, (gemm_paths, per_step)
-    assert gemm_paths["fma"] == 2 * steps, gemm_paths
+    assert gemm_paths["simt"] == 2 * steps and gemm_paths["fma"] == 0, \
+        gemm_paths
     roles = out["k1_launches_by_role"]
     assert roles.get("unembed_dX") == roles.get("unembed_dW") == 1, roles
     assert sum(roles.values()) == per_step + 2, roles
     assert out["bf16_step_vs_plain"]["plain_gemm_launches"] == 0
+    on = out["step_on_fma"]
+    assert on["bit_equal_simt"], (on, hold["kernel"][0])
+    assert on["gemm_launches_by_path"]["fma"] == 2 and \
+        on["gemm_launches_by_path"]["simt"] == 0, on
     for k, tol in TRAIN_BF16_TOL.items():
         got, want = hold["kernel"][0][k], hold["plain"][0][k]
         assert math.isfinite(got) and abs(got - want) <= tol * abs(want), \
@@ -2887,13 +2997,13 @@ def phase_train(torch, ctx, phase: str = "train"):
         paths = dots["gemm_launches_by_path"]
         assert paths["wgmma"] == spec["dots_wgmma"](cfg) * steps, (paths,
                                                                     spec)
-        assert paths["fma"] == 2 * steps, paths
+        assert paths["simt"] == 2 * steps and paths["fma"] == 0, paths
         assert paths["decode"] == paths["wmma"] == 0, paths
         assert dots["k1_launches_by_role"].get("forward_recompute", 0) == 0, \
             dots["k1_launches_by_role"]
     f32 = out["f32_step_vs_plain"]
     assert sum(f32["plain_gemm_launches_by_path"].values()) == 0, f32
-    assert f32["kernel_gemm_launches_by_path"]["fma"] > 0, f32
+    assert f32["kernel_gemm_launches_by_path"]["simt"] > 0, f32
     assert f32["metrics_max_rel_err"] <= TRAIN_F32_TOL["metrics"], f32
     assert max(f32["grad_max_rel_err"].values()) <= f32["grad_tol"], f32
     assert all(max(v) <= ZERO_GRAD_TOL for v in zero.values()), f32
@@ -2938,7 +3048,7 @@ def phase_mesh(torch, serve_outs, families):
     the tokens (also the serve phase's), launches by path and transfers
     must agree.  Train: the train phase's first 3 steps under the FSDP
     rules on the mesh; the losses bit-equal to that phase's (else within
-    ``TRAIN_BF16_TOL``), 28 wgmma products a layer + 1 and 2 fma a step,
+    ``TRAIN_BF16_TOL``), 28 wgmma products a layer + 1 and 2 simt a step,
     and the params saved from the mesh restore with no mesh bit for bit.
     -> two entries for ``summarize`` (``mesh_serve``, ``mesh_train``)."""
     import dataclasses
@@ -3104,7 +3214,7 @@ def phase_mesh(torch, serve_outs, families):
     g, f = runs["mesh_cold"]["gemm_launches_by_path"], runs["mesh_cold"][
         "flash_launches_by_path"]
     assert g["decode"] > 0 and g["wgmma"] > 0, g
-    assert g["wmma"] == 0 and g["fma"] == 0, g
+    assert g["wmma"] == g["fma"] == g["simt"] == 0, g
     assert f["wgmma"] > 0 and f["fma"] == 0, f
     prof = sv["profile"]
     assert prof["host_syncs"] == prof["chunks"] == prof[
@@ -3118,7 +3228,7 @@ def phase_mesh(torch, serve_outs, families):
                            for k, v in lookups.items()), lookups
     paths = tr["run"]["gemm_launches_by_path"]
     assert paths["wgmma"] == spec["wgmma"](cfg) * n_steps, paths
-    assert paths["fma"] == 2 * n_steps, paths
+    assert paths["simt"] == 2 * n_steps and paths["fma"] == 0, paths
     assert paths["decode"] == paths["wmma"] == 0, paths
     assert tr["run"]["launches"]["flash_attention"] == 0, tr["run"]
     assert all(math.isfinite(l) for l in tr["losses"]), tr["losses"]

@@ -45,7 +45,8 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 
 FAMILIES = (   # (family, substrings of the device kernel's name), first match
     ("gemm (port kernel)", ("gemm_decode_kernel", "gemm_wgmma_kernel",
-                            "gemm_bf16_kernel", "gemm_f32_kernel")),
+                            "gemm_bf16_kernel", "gemm_simt_kernel",
+                            "gemm_f32_kernel")),
     ("flash_attention (port kernel)", ("flash_fwd",)),
     ("decode attention matmuls (torch)", ("gemm", "sm90_xmma", "cutlass",
                                           "ampere", "sgemm", "Kernel2")),

@@ -38,13 +38,15 @@ from repro_torch.kernels import gemm as _gemm
 class TileConfig:
     """Schedule of one GEMM launch.  Hashable.
 
-    ``kernel``: ``wmma`` (bf16 tensor cores through WMMA), ``fma`` (f32),
-    ``decode`` (bf16 small M: mma.sync with the operands swapped, split-K)
-    or ``wgmma`` (bf16 large M: TMA + wgmma, warp-specialised).
+    ``kernel``: ``wmma`` (bf16 tensor cores through WMMA), ``fma`` (f32,
+    small M), ``simt`` (f32 larger M: 8 x 8 outputs a thread, double
+    buffered), ``decode`` (bf16 small M: mma.sync with the operands
+    swapped, split-K) or ``wgmma`` (bf16 large M: TMA + wgmma,
+    warp-specialised).
     ``stages``: shared-memory ring depth of ``decode`` and ``wgmma``.
     ``split_k``: the number of K chunks ``decode`` cuts K into.
-    ``group_m``: ``wgmma`` walks output tiles in columns of this many rows
-    of tiles, so that a wave's A and B panels stay in L2.
+    ``group_m``: ``wgmma`` and ``simt`` walk output tiles in columns of this
+    many rows of tiles, so that a wave's A and B panels stay in L2.
     """
     bm: int = 64
     bk: int = 32
@@ -105,8 +107,11 @@ class FlashAttentionConfig:
 #: a 3-deep ring (3 blocks an SM) streams the 128256-column unembed best.
 #: Larger M (prefill) runs ``wgmma`` on 128 x 256 tiles walked in columns of
 #: 16 tile rows, and on 128 x 64 tiles at small N so that the grid still
-#: covers the 132 SMs.  f32 runs on FMA threads.  Set from
-#: ``scripts/torch_gemm_sweep.py`` on an H100 SXM at 700 W.
+#: covers the 132 SMs.  f32 up to M = 16 (the f32 oracles' decode) runs
+#: ``fma``; larger M (the unembed's f32 backward in training) ``simt``,
+#: which sums every output in the same order, so the two give the same
+#: bits.  Set from ``scripts/torch_gemm_sweep.py`` on an H100 SXM at 700 W
+#: (f32: ``--f32``).
 H100_GEMM_TILES = {
     torch.bfloat16: (
         (16, 32768, TileConfig(16, 128, 64, kernel="decode", stages=4)),
@@ -117,16 +122,25 @@ H100_GEMM_TILES = {
     ),
     torch.float32: (
         (16, None, TileConfig(16, 16, 128, kernel="fma")),
-        (None, None, TileConfig(64, 16, 64, kernel="fma")),
+        (None, 1280, TileConfig(128, 8, 64, kernel="simt")),
+        (None, None, TileConfig(128, 16, 128, kernel="simt", group_m=16)),
     ),
 }
-#: bf16 operands that neither ``decode`` nor ``wgmma`` can take (a base
-#: address or row stride that is not a multiple of 16 bytes): WMMA, by M.
-H100_UNALIGNED_TILES = (
-    (16, TileConfig(16, 64, 64)),
-    (256, TileConfig(64, 32, 64)),
-    (None, TileConfig(128, 32, 128)),
-)
+#: operands the table's kernel cannot take, by input dtype: (largest M,
+#: tile), first match.  bf16 that neither ``decode`` nor ``wgmma`` can take
+#: (a base address or row stride that is not a multiple of 16 bytes) runs
+#: WMMA; f32 that ``simt`` cannot take (not a multiple of 8 bytes) ``fma``.
+H100_UNALIGNED_TILES = {
+    torch.bfloat16: (
+        (16, TileConfig(16, 64, 64)),
+        (256, TileConfig(64, 32, 64)),
+        (None, TileConfig(128, 32, 128)),
+    ),
+    torch.float32: (
+        (16, TileConfig(16, 16, 128, kernel="fma")),
+        (None, TileConfig(64, 16, 64, kernel="fma")),
+    ),
+}
 #: blocks a ``decode`` launch aims at: about two per SM of the H100's 132
 DECODE_TARGET_BLOCKS = 256
 
@@ -172,16 +186,17 @@ def gemm_tiles(dtype: torch.dtype, m: int, k: int, n: int,
                aligned: bool = True) -> TileConfig:
     """The H100 table's GEMM schedule for an (m, k, n) product of ``dtype``.
 
-    ``aligned=False`` is for bf16 operands the TMA and ``cp.async`` paths
-    cannot take; the wrapper decides it from the strides before a launch.
+    ``aligned=False`` is for operands the table's kernel cannot take (bf16
+    off the TMA and ``cp.async`` paths, f32 off ``simt``'s vector loads);
+    the wrapper decides it from the strides before a launch.
     Cached: a decode step asks for the same few shapes 113 times.
     """
     try:
         table = H100_GEMM_TILES[dtype]
     except KeyError:
         raise TypeError(f"no GEMM tiles for {dtype}") from None
-    if dtype == torch.bfloat16 and not aligned:
-        for max_m, tile in H100_UNALIGNED_TILES:
+    if not aligned:
+        for max_m, tile in H100_UNALIGNED_TILES[dtype]:
             if max_m is None or m <= max_m:
                 return tile
     for max_m, max_n, tile in table:
@@ -325,12 +340,16 @@ def _dtype_name(dtype) -> str:
 
 def gemm_kernel_for(dtype, m: int) -> Optional[str]:
     """The kernel a GEMM of ``dtype`` with ``m`` rows runs on aligned
-    operands: ``decode`` up to ``DECODE_MAX_M`` rows and ``wgmma`` beyond
-    (bf16), ``fma`` (f32); None for a type no kernel takes."""
+    operands: up to ``DECODE_MAX_M`` rows ``decode`` (bf16) or ``fma``
+    (f32), beyond it ``wgmma`` or ``simt``; None for a type no kernel
+    takes."""
     dt = _dtype_name(dtype)
+    small = m <= _gemm.DECODE_MAX_M
     if dt == "bfloat16":
-        return "decode" if m <= _gemm.DECODE_MAX_M else "wgmma"
-    return "fma" if dt == "float32" else None
+        return "decode" if small else "wgmma"
+    if dt == "float32":
+        return "fma" if small else "simt"
+    return None
 
 
 def gemm_takes(cfg: TileConfig, dtype, m: int) -> bool:
@@ -364,7 +383,8 @@ class TuningSpace:
     """GEMM candidates: every schedule ``gemm.cu`` instantiates for the
     kernel the shape runs on, crossed with the split count (``decode``:
     powers of two up to one ``bk`` step a split, each distinct K chunk
-    once) or the raster grouping (``wgmma``: up to the tile rows M has).
+    once) or the raster grouping (``wgmma``, ``simt``: up to the tile rows
+    M has).
     The hand table's schedule is always among them."""
     split_k_candidates: Sequence[int] = (1, 2, 4, 8, 16, 32)
     group_m_candidates: Sequence[int] = (1, 4, 8, 16)
@@ -386,15 +406,15 @@ class TuningSpace:
                         continue
                     chunks.add(chunk)
                     out[cfg] = None
-            elif kernel == "wgmma":
+            elif kernel in ("wgmma", "simt"):
                 rows = -(-m // bm)
                 for g in self.group_m_candidates:
                     if g == 1 or g <= rows:
                         out[dataclasses.replace(base, group_m=g)] = None
             else:
                 out[base] = None
-        hand = gemm_tiles(torch.float32 if kernel == "fma" else torch.bfloat16,
-                          m, k, n)
+        hand = gemm_tiles(torch.float32 if kernel in _gemm.F32_KERNELS
+                          else torch.bfloat16, m, k, n)
         if not any(_same_launch(hand, c, k) for c in out):
             out[hand] = None
         yield from out

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels (``csrc/``), their wrappers and plain versions.
 
 Each wrapper counts its launches by kernel where it launches it: the GEMM's
-(``decode``, ``wgmma``, ``wmma``, ``fma``) and the flash attention's
-(``wgmma``, ``fma``).  ``launch_counts`` reads each wrapper's sum,
+(``decode``, ``wgmma``, ``wmma``, ``fma``, ``simt``) and the flash
+attention's (``wgmma``, ``fma``).  ``launch_counts`` reads each wrapper's sum,
 ``gemm_launches_by_path`` and ``flash_launches_by_path`` read them by
 kernel, and ``reset_launch_counts`` sets them all to 0.
 """

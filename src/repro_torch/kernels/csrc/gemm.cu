@@ -14,8 +14,9 @@
 // raster grouping) arrives as a launch argument from the port's tile table
 // (repro_torch/core/tile_config.py); no kernel here chooses one.
 //
-// Four kernels, one per regime.  Bounds are for llama3.2-1b's serving shapes
-// on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16, 132 SMs):
+// Five kernels, one per regime.  Bounds are for llama3.2-1b's serving and
+// training shapes on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16, 67
+// TFLOP/s f32 outside the tensor cores, 132 SMs):
 //
 //  * decode, bf16, M <= 16 (gemm_decode_kernel).  Bound by bytes: a decode
 //    step reads every weight once (16 x 36.7 MB of projections + the 525 MB
@@ -53,9 +54,30 @@
 //    before the launch.
 //  * bf16 operands neither path can take (gemm_bf16_kernel): 4 warps of
 //    WMMA 16x16x16 tiles, loads then MMAs, no overlap (the first port).
-//  * f32 (gemm_f32_kernel): plain FMA in full precision (never TF32), each
-//    output summed one k at a time in ascending order whatever M and the
-//    tile are, so batched and solo rows agree bit for bit.
+//  * f32, M > 16 (gemm_simt_kernel): the unembed's f32 backward in
+//    training (dX = dZ @ W.T and dW = X.T @ dZ over the f32 cotangent, e.g.
+//    4096 x 128256 x 2048) and the f32 oracles' prefill.  Bound by FP32
+//    operations: 2 * M * N * K FLOP at 67 TFLOP/s (32 ms for each of
+//    llama's two), far above the bytes.  Full precision, never TF32 or a
+//    split bf16 product: every output is one fmaf chain over k = 0 .. K - 1
+//    in ascending order from +0.0f, as gemm_f32_kernel computes it, so the
+//    two give the same bits on every input, whatever the tile or M (no
+//    split-K, no reordering).  To reach the FP32 pipes, each thread owns 8 x
+//    8 outputs (2 x 2 fragments of 4 x 4; 128 x 128 x 16 a block of 256
+//    threads, and 128 x 64 x 8 of 128 threads where N is small), so a k step
+//    is 4 16-byte shared loads for 64 FFMA; vector global loads (16 or 8
+//    bytes, a template parameter the wrapper picks from the bases and
+//    strides) run into registers while the current k tile is computed and
+//    are stored transposed into the other half of a double buffer, one
+//    barrier a k tile; tiles are walked in columns of group_m tile rows.
+//    At most 128 registers a thread keep 2 blocks (4 of 128 threads) an
+//    SM.  The k loop is unrolled whole (unrolled by 4 it spilled and ran
+//    slower on an H100).
+//    f32 operands no vector path takes (a 4-byte-only base or row stride)
+//    go to gemm_f32_kernel; the wrapper decides before the launch.
+//  * f32, M <= 16, and the operands above (gemm_f32_kernel): plain FMA,
+//    4 x 4 outputs a thread, scalar loads, one shared buffer (the first
+//    port's kernel), the same fmaf chain.
 #include <cuda.h>   // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -73,7 +95,8 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3, ACT_TANH = 4 };
-enum { KERNEL_WMMA = 0, KERNEL_FMA = 1, KERNEL_DECODE = 2, KERNEL_WGMMA = 3 };
+enum { KERNEL_WMMA = 0, KERNEL_FMA = 1, KERNEL_DECODE = 2, KERNEL_WGMMA = 3,
+       KERNEL_SIMT = 4 };
 // Return codes besides cudaError_t: no instantiation for the schedule, a
 // tensor map cuTensorMapEncodeTiled refused, a split-K launch without its
 // workspace, arguments the kernel does not take.
@@ -108,13 +131,17 @@ struct Epilogue {
 
 // FAST (the wgmma kernel's epilogue, which does not overlap its K loop):
 // SiLU through __expf and __fdividef, a few ulp from expf and the IEEE
-// division, far inside what a bf16 or f32 result is held to.
+// division, far inside what a bf16 or f32 result is held to.  alpha, beta
+// * C and bias are rounded one operation at a time (the _rn intrinsics are
+// never fused into an FMA), so every kernel, whatever code surrounds its
+// epilogue, rounds them alike: with alpha = 1 and no C, the only case the
+// models issue, that is what an FMA of alpha, acc and bias gives too.
 template <bool FAST = false>
 __device__ __forceinline__ float epilogue(float acc, int gm, int gn,
                                           const Epilogue& ep) {
-  float out = ep.alpha * acc;
-  if (ep.C) out += ep.beta * ep.C[(long long)gm * ep.ldc + gn];
-  if (ep.bias) out += ep.bias[gn];
+  float out = __fmul_rn(ep.alpha, acc);
+  if (ep.C) out = __fadd_rn(out, __fmul_rn(ep.beta, ep.C[(long long)gm * ep.ldc + gn]));
+  if (ep.bias) out = __fadd_rn(out, ep.bias[gn]);
   if (FAST && ep.act == ACT_SILU) return __fdividef(out, 1.0f + __expf(-out));
   return activate(out, ep.act);
 }
@@ -353,6 +380,214 @@ gemm_f32_kernel(const float* __restrict__ A, long long lda,
     }
 }
 
+// Output tile of CTA `id`: CTAs walk the (M / BM) x (N / BN) grid of tiles
+// in columns of group_m tile rows, so that the A and B panels a wave of CTAs
+// reads stay in L2.
+__device__ __forceinline__ void tile_of(int id, int group_m, int m_tiles, int n_tiles,
+                                        int& m_tile, int& n_tile) {
+  const int per_group = group_m * n_tiles;
+  const int first = (id / per_group) * group_m;
+  const int rows = min(group_m, m_tiles - first);
+  const int in_group = id % per_group;
+  m_tile = first + in_group % rows;
+  n_tile = in_group / rows;
+}
+
+// ---------------------------------------------------------------------------
+// f32 x f32, register-blocked SIMT: 8 x 8 outputs a thread, double-buffered
+// ---------------------------------------------------------------------------
+// A block of (BM / 8) x (BN / 8) threads owns a BM x BN tile.  Thread (tr,
+// tc) owns rows tr*4 .. +3 and BM/2 + tr*4 .. +3 and the same two groups of
+// columns: 2 x 2 fragments of 4 x 4, so that each k step reads its 8 A and
+// 8 B values as four 16-byte shared loads (A stored transposed, As[k][m]).
+// Global loads are VEC floats wide (VEC * 4 = 16 or 8 bytes; the wrapper
+// picks VEC from the bases and strides) and go through registers into the
+// other half of a double buffer while the current half is computed: one
+// barrier a k step.
+template <int BM, int BN, int BK, int VEC, bool B_KMAJOR>
+struct SimtTile {
+  static constexpr int kThreads = (BM / 8) * (BN / 8);
+  static constexpr int kLdA = BM + 4;                   // As[k][m]; 16-byte rows
+  static constexpr int kLdB = BN + 4;                   // Bs[k][n]
+  static constexpr int kAVecs = BM * BK / VEC / kThreads;  // a thread's, a k step
+  static constexpr int kBVecs = BN * BK / VEC / kThreads;
+  static_assert(BM % 32 == 0 && BN % 64 == 0, "warps of 4 x 8 threads");
+  static_assert(kAVecs * VEC * kThreads == BM * BK &&
+                kBVecs * VEC * kThreads == BN * BK && BK % VEC == 0,
+                "whole vectors a thread");
+};
+
+// VEC consecutive floats from p[0 .. VEC - 1], those at index >= `left` (and
+// all of them when !ok) read as zeros.  p must be VEC * 4-byte aligned.
+template <int VEC>
+__device__ __forceinline__ void load_vec(float* v, const float* p, bool ok,
+                                         int left) {
+  if (ok && left >= VEC) {
+    if constexpr (VEC == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+      v[0] = t.x; v[1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = (ok && j < left) ? p[j] : 0.0f;
+  }
+}
+
+// Four neighbouring columns gn .. gn + 3 of row gm, masked at N; one vector
+// store where all four lie inside and the address allows it.  Each value
+// goes through the same epilogue and rounding as store_one.
+__device__ __forceinline__ void store_four(void* D, bool out_f32, long long ldd,
+                                           int gm, int gn, float4 v, int N,
+                                           const Epilogue& ep) {
+  const float in[4] = {v.x, v.y, v.z, v.w};
+  float o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) o[j] = gn + j < N ? epilogue(in[j], gm, gn + j, ep) : 0.0f;
+  const long long at = (long long)gm * ldd + gn;
+  const bool whole = gn + 4 <= N && at % 4 == 0;
+  if (out_f32) {
+    float* d = static_cast<float*>(D) + at;
+    if (whole) {
+      *reinterpret_cast<float4*>(d) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gn + j < N) d[j] = o[j];
+    }
+  } else {
+    bf16* d = static_cast<bf16*>(D) + at;
+    if (whole) {
+      uint2 w;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+      h[0] = __halves2bfloat162(__float2bfloat16_rn(o[0]), __float2bfloat16_rn(o[1]));
+      h[1] = __halves2bfloat162(__float2bfloat16_rn(o[2]), __float2bfloat16_rn(o[3]));
+      *reinterpret_cast<uint2*>(d) = w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gn + j < N) d[j] = __float2bfloat16_rn(o[j]);
+    }
+  }
+}
+
+template <int BM, int BN, int BK, int VEC, bool B_KMAJOR>
+__global__ void __launch_bounds__((BM / 8) * (BN / 8), 512 / ((BM / 8) * (BN / 8)))
+gemm_simt_kernel(const float* __restrict__ A, long long lda,
+                 const float* __restrict__ B, long long sbk, long long sbn,
+                 void* __restrict__ D, long long ldd, int M, int N, int K,
+                 Epilogue ep, bool out_f32, int group_m) {
+  typedef SimtTile<BM, BN, BK, VEC, B_KMAJOR> Tile;
+  constexpr int NT = Tile::kThreads;
+  __shared__ __align__(16) float As[2][BK][Tile::kLdA];
+  __shared__ __align__(16) float Bs[2][BK][Tile::kLdB];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int m_tile, n_tile;
+  tile_of(blockIdx.x, group_m, (M + BM - 1) / BM, (N + BN - 1) / BN, m_tile, n_tile);
+  const int m0 = m_tile * BM, n0 = n_tile * BN;
+  // warps of 4 x 8 threads; BM / 32 warps down the tile
+  const int tr = (warp % (BM / 32)) * 4 + lane / 8;
+  const int tc = (warp / (BM / 32)) * 8 + lane % 8;
+
+  // The k-contiguous operands (A, and a K-major B) are read VEC k at a
+  // time, BK / VEC threads to a row; a row-major B VEC n at a time.
+  float ra[Tile::kAVecs][VEC], rb[Tile::kBVecs][VEC];
+  auto gload = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < Tile::kAVecs; ++i) {
+      const int e = tid + i * NT, r = e / (BK / VEC), gk = k0 + (e % (BK / VEC)) * VEC;
+      load_vec<VEC>(ra[i], A + (long long)(m0 + r) * lda + gk, m0 + r < M, K - gk);
+    }
+#pragma unroll
+    for (int i = 0; i < Tile::kBVecs; ++i) {
+      const int e = tid + i * NT;
+      if (B_KMAJOR) {  // element (k, n) at B[n * sbn + k]
+        const int r = e / (BK / VEC), gk = k0 + (e % (BK / VEC)) * VEC;
+        load_vec<VEC>(rb[i], B + (long long)(n0 + r) * sbn + gk, n0 + r < N, K - gk);
+      } else {         // element (k, n) at B[k * sbk + n]
+        const int r = e / (BN / VEC), gn = n0 + (e % (BN / VEC)) * VEC;
+        load_vec<VEC>(rb[i], B + (long long)(k0 + r) * sbk + gn, k0 + r < K, N - gn);
+      }
+    }
+  };
+  auto sstore = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < Tile::kAVecs; ++i) {
+      const int e = tid + i * NT, r = e / (BK / VEC), c = (e % (BK / VEC)) * VEC;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) As[buf][c + j][r] = ra[i][j];
+    }
+#pragma unroll
+    for (int i = 0; i < Tile::kBVecs; ++i) {
+      const int e = tid + i * NT;
+      if (B_KMAJOR) {
+        const int r = e / (BK / VEC), c = (e % (BK / VEC)) * VEC;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) Bs[buf][c + j][r] = rb[i][j];
+      } else {
+        const int r = e / (BN / VEC), c = (e % (BN / VEC)) * VEC;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) Bs[buf][r][c + j] = rb[i][j];
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  // Zero-filled k >= K adds fmaf(0, 0, acc) = acc: every output is the
+  // fmaf chain over k = 0 .. K - 1 in ascending order that gemm_f32_kernel
+  // computes, whatever the tile.
+  const int nk = (K + BK - 1) / BK;
+  if (nk > 0) {
+    gload(0);
+    sstore(0);
+  }
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) gload((kt + 1) * BK);  // in flight while this step computes
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][tr * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][BM / 2 + tr * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tc * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][BN / 2 + tc * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    // the other half was last read in step kt - 1, which every thread
+    // finished before the barrier that ended it
+    if (kt + 1 < nk) sstore(cur ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + (i / 4) * (BM / 2) + tr * 4 + i % 4;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n0 + h * (BN / 2) + tc * 4;
+      if (gn < N)
+        store_four(D, out_f32, ldd, gm, gn,
+                   make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                               acc[i][4 * h + 3]),
+                   N, ep);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // bf16 decode, M <= 16: D^T = W^T X^T on mma.sync.m16n8k16, split-K, cp.async
 // ---------------------------------------------------------------------------
@@ -522,19 +757,6 @@ struct WgmmaTile {
   static constexpr int kSmem = 1024 + STAGES * kStageBytes + 2 * STAGES * 8;
 };
 
-// Output tile of CTA `id`: CTAs walk the (M / BM) x (N / BN) grid of tiles
-// in columns of group_m tile rows, so that the A and B panels a wave of CTAs
-// reads stay in L2.
-__device__ __forceinline__ void tile_of(int id, int group_m, int m_tiles, int n_tiles,
-                                        int& m_tile, int& n_tile) {
-  const int per_group = group_m * n_tiles;
-  const int first = (id / per_group) * group_m;
-  const int rows = min(group_m, m_tiles - first);
-  const int in_group = id % per_group;
-  m_tile = first + in_group % rows;
-  n_tile = in_group / rows;
-}
-
 template <int BN, int STAGES, bool B_KMAJOR>
 __global__ void __launch_bounds__(384, 1)
 gemm_wgmma_kernel(__grid_constant__ const CUtensorMap tma_a,
@@ -662,7 +884,8 @@ struct Args {
   int k_chunk;      // decode: K elements per split
   float* ws;        // decode split-K: (splits, M, N) f32 partials
   int* counters;    // decode split-K: one zeroed int per column tile
-  int group_m;      // wgmma: tile rows per raster column
+  int group_m;      // wgmma, simt: tile rows per raster column
+  int vec;          // simt: bytes a global load reads (16 or 8)
   cudaStream_t stream;
 };
 
@@ -694,6 +917,25 @@ cudaError_t launch_f32(const Args& a) {
   gemm_f32_kernel<BM, BN, BK, B_KMAJOR, OutT><<<grid, 256, 0, a.stream>>>(
       static_cast<const float*>(a.A), a.lda, static_cast<const float*>(a.B),
       a.sbk, a.sbn, static_cast<OutT*>(a.D), a.ldd, a.M, a.N, a.K, a.ep);
+  return cudaGetLastError();
+}
+
+template <int BM, int BN, int BK, bool B_KMAJOR>
+int launch_simt(const Args& a) {
+  if (a.group_m < 1) return ERR_ARGS;
+  const long long tiles = (long long)((a.M + BM - 1) / BM) * ((a.N + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return ERR_ARGS;
+  constexpr int threads = (BM / 8) * (BN / 8);
+  const float* A = static_cast<const float*>(a.A);
+  const float* B = static_cast<const float*>(a.B);
+  if (a.vec == 16)
+    gemm_simt_kernel<BM, BN, BK, 4, B_KMAJOR><<<(unsigned)tiles, threads, 0, a.stream>>>(
+        A, a.lda, B, a.sbk, a.sbn, a.D, a.ldd, a.M, a.N, a.K, a.ep, a.out_f32, a.group_m);
+  else if (a.vec == 8)
+    gemm_simt_kernel<BM, BN, BK, 2, B_KMAJOR><<<(unsigned)tiles, threads, 0, a.stream>>>(
+        A, a.lda, B, a.sbk, a.sbn, a.D, a.ldd, a.M, a.N, a.K, a.ep, a.out_f32, a.group_m);
+  else
+    return ERR_ARGS;
   return cudaGetLastError();
 }
 
@@ -781,6 +1023,13 @@ int dispatch_fma(const Args& a, int bm, int bk, int bn) {
 }
 
 template <bool B_KMAJOR>
+int dispatch_simt(const Args& a, int bm, int bk, int bn) {
+  if (bm == 128 && bk == 16 && bn == 128) return launch_simt<128, 128, 16, B_KMAJOR>(a);
+  if (bm == 128 && bk == 8 && bn == 64) return launch_simt<128, 64, 8, B_KMAJOR>(a);
+  return ERR_NO_TILE;
+}
+
+template <bool B_KMAJOR>
 int dispatch_decode(const Args& a, int bm, int bk, int bn, int stages) {
   if (bm == 16 && bk == 128 && bn == 64 && stages == 4) return launch_decode<128, 64, 4, B_KMAJOR>(a);
   if (bm == 16 && bk == 128 && bn == 64 && stages == 3) return launch_decode<128, 64, 3, B_KMAJOR>(a);
@@ -806,8 +1055,10 @@ int dispatch_wgmma(const Args& a, int bm, int bk, int bn, int stages) {
 // K is 1 (else its stride over N is 1).  kernel: 0 wmma, 1 fma (f32 only),
 // 2 decode (bf16, M <= 16; k_chunk, and for more than one chunk the
 // workspace and counters), 3 wgmma (bf16; 16-byte aligned bases and row
-// strides; group_m >= 1 tile rows per raster column).  Returns cudaGetLastError() after the launch, or a negative
-// code: -1 no instantiation of the schedule, -2 tensor map refused, -3
+// strides; group_m >= 1 tile rows per raster column), 4 simt (f32; vec 16
+// or 8: bases and the row strides of A and B are multiples of vec bytes;
+// group_m as wgmma).  Returns cudaGetLastError() after the launch, or a
+// negative code: -1 no instantiation of the schedule, -2 tensor map refused, -3
 // split-K without workspace, -4 arguments the kernel does not take.
 static int gemm_launch(const void* A, long long lda, const void* B,
                        long long sbk, long long sbn, const void* C,
@@ -815,7 +1066,7 @@ static int gemm_launch(const void* A, long long lda, const void* B,
                        long long ldd, int M, int N, int K, float alpha,
                        float beta, int act, int in_f32, int out_f32,
                        int b_kmajor, int bm, int bk, int bn, int kernel,
-                       int stages, int k_chunk, int group_m,
+                       int stages, int k_chunk, int group_m, int vec,
                        void* workspace, void* counters, void* stream) {
   Args a;
   a.A = A; a.lda = lda; a.B = B; a.sbk = sbk; a.sbn = sbn;
@@ -823,16 +1074,20 @@ static int gemm_launch(const void* A, long long lda, const void* B,
   a.ep.C = static_cast<const float*>(C); a.ep.ldc = ldc;
   a.ep.bias = static_cast<const float*>(bias);
   a.ep.alpha = alpha; a.ep.beta = beta; a.ep.act = act;
-  a.out_f32 = out_f32 != 0; a.k_chunk = k_chunk; a.group_m = group_m;
+  a.out_f32 = out_f32 != 0; a.k_chunk = k_chunk; a.group_m = group_m; a.vec = vec;
   a.ws = static_cast<float*>(workspace); a.counters = static_cast<int*>(counters);
   a.stream = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
   if (in_f32) {
-    if (kernel != KERNEL_FMA) return ERR_NO_TILE;
-    if (b_kmajor) return out_f32 ? dispatch_fma<true, float>(a, bm, bk, bn)
-                                 : dispatch_fma<true, bf16>(a, bm, bk, bn);
-    return out_f32 ? dispatch_fma<false, float>(a, bm, bk, bn)
-                   : dispatch_fma<false, bf16>(a, bm, bk, bn);
+    if (kernel == KERNEL_FMA) {
+      if (b_kmajor) return out_f32 ? dispatch_fma<true, float>(a, bm, bk, bn)
+                                   : dispatch_fma<true, bf16>(a, bm, bk, bn);
+      return out_f32 ? dispatch_fma<false, float>(a, bm, bk, bn)
+                     : dispatch_fma<false, bf16>(a, bm, bk, bn);
+    }
+    if (kernel == KERNEL_SIMT)
+      return b_kmajor ? dispatch_simt<true>(a, bm, bk, bn) : dispatch_simt<false>(a, bm, bk, bn);
+    return ERR_NO_TILE;
   }
   switch (kernel) {
     case KERNEL_WMMA:
@@ -853,7 +1108,7 @@ static int gemm_launch(const void* A, long long lda, const void* B,
 
 // The library's entry point: gemm_launch with its integer and pointer
 // arguments packed, in the same order, into one array of 64-bit integers:
-// one ctypes conversion instead of 29, which is most of a decode launch's
+// one ctypes conversion instead of 30, which is most of a decode launch's
 // host time.
 extern "C" int gemm_launch_packed(const long long* p, float alpha, float beta) {
   return gemm_launch(
@@ -862,8 +1117,8 @@ extern "C" int gemm_launch_packed(const long long* p, float alpha, float beta) {
       reinterpret_cast<const void*>(p[7]), reinterpret_cast<void*>(p[8]), p[9],
       (int)p[10], (int)p[11], (int)p[12], alpha, beta, (int)p[13], (int)p[14],
       (int)p[15], (int)p[16], (int)p[17], (int)p[18], (int)p[19], (int)p[20],
-      (int)p[21], (int)p[22], (int)p[23], reinterpret_cast<void*>(p[24]),
-      reinterpret_cast<void*>(p[25]), reinterpret_cast<void*>(p[26]));
+      (int)p[21], (int)p[22], (int)p[23], (int)p[24], reinterpret_cast<void*>(p[25]),
+      reinterpret_cast<void*>(p[26]), reinterpret_cast<void*>(p[27]));
 }
 
 extern "C" const char* gemm_error_string(int err) {

@@ -9,10 +9,13 @@ nothing falls back to the plain version (``ref.gemm_ref``), which
 that require grad: its output has no ``grad_fn``, and ``core.matmul``'s
 autograd Function is the way to a gradient.
 
-One decision is the wrapper's, taken from the strides before the launch:
+Two decisions are the wrapper's, taken from the strides before the launch:
 bf16 operands that the ``decode`` (cp.async) and ``wgmma`` (TMA) kernels
 cannot take -- a base address or row stride that is not a multiple of 16
-bytes -- go to the ``wmma`` kernel with the table's tile for them.
+bytes -- go to the ``wmma`` kernel with the table's tile for them; f32
+operands of the ``simt`` kernel are read 16 or 8 bytes at a time, the
+widest their bases and row strides allow (``simt_vector_bytes``), and
+those that allow neither go to the ``fma`` kernel.
 
 ``gemm_cuda.launches_by_path`` counts launches by kernel; their sum is the
 GEMM's launch count.  ``instantiated_schedules`` reads the schedules
@@ -38,13 +41,16 @@ from repro_torch.kernels.ref import ACTIVATION_CODES
 _PACKED = ("A", "lda", "B", "sbk", "sbn", "C", "ldc", "bias", "D", "ldd",
            "M", "N", "K", "act", "in_f32", "out_f32", "b_kmajor",
            "bm", "bk", "bn", "kernel", "stages", "k_chunk", "group_m",
-           "workspace", "counters", "stream")
+           "vec", "workspace", "counters", "stream")
 _TLS = threading.local()
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
 #: TileConfig.kernel -> the C side's kernel code
-KERNEL_CODES = {"wmma": 0, "fma": 1, "decode": 2, "wgmma": 3}
-#: largest M the decode kernel takes (two 8-token MMA fragments)
+KERNEL_CODES = {"wmma": 0, "fma": 1, "decode": 2, "wgmma": 3, "simt": 4}
+#: the kernels that take f32 operands
+F32_KERNELS = ("fma", "simt")
+#: largest M the decode kernel takes (two 8-token MMA fragments); f32
+#: products up to this M stay on ``fma`` (only the f32 oracles' decode)
 DECODE_MAX_M = 16
 
 #: per (device, stream): the split-K workspace and zeroed counters, grown on
@@ -112,6 +118,22 @@ def _aligned(kernel: str, a_ptr: int, lda: int, b_ptr: int, sbk: int,
     return sbk % 8 == 0 and sbk >= n
 
 
+def simt_vector_bytes(a_ptr: int, lda: int, b_ptr: int, sbk: int, sbn: int,
+                      b_kmajor: int) -> int:
+    """Bytes each global load of the ``simt`` kernel reads: 16 or 8, the
+    widest that divides both base addresses and the row strides of A and
+    B (in bytes; a K-major B's rows run along N), so that every vector of a
+    row is aligned; 0 where neither does (the ``fma`` kernel takes those).
+    whisper-large-v3's 51866-wide f32 cotangent rows give 8."""
+    ldb = sbn if b_kmajor else sbk
+    for width in (16, 8):
+        floats = width // 4
+        if (a_ptr | b_ptr) % width == 0 and lda % floats == 0 \
+                and ldb % floats == 0:
+            return width
+    return 0
+
+
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
               *, config, alpha: float = 1.0, beta: float = 0.0,
               bias: Optional[torch.Tensor] = None,
@@ -157,14 +179,17 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None
         b_kmajor = 0
     a_ptr, lda, b_ptr = a.data_ptr(), a.stride(0), b.data_ptr()
     kernel = config.kernel
-    if (a.dtype == torch.float32) != (kernel == "fma"):
+    if (a.dtype == torch.float32) != (kernel in F32_KERNELS):
         raise ValueError(f"gemm_cuda: schedule {config.schedule} does not "
                          f"take {a.dtype} operands")
     if kernel == "decode" and m > DECODE_MAX_M:
         raise ValueError(f"gemm_cuda: the decode kernel takes M <= "
                          f"{DECODE_MAX_M}, got {m}")
-    if kernel in ("decode", "wgmma") and not _aligned(
-            kernel, a_ptr, lda, b_ptr, sbk, sbn, b_kmajor, k, n):
+    vec = (simt_vector_bytes(a_ptr, lda, b_ptr, sbk, sbn, b_kmajor)
+           if kernel == "simt" else 0)
+    if (kernel == "simt" and not vec) or (
+            kernel in ("decode", "wgmma") and not _aligned(
+                kernel, a_ptr, lda, b_ptr, sbk, sbn, b_kmajor, k, n)):
         from repro_torch.core.tile_config import gemm_tiles
         config = gemm_tiles(a.dtype, m, k, n, aligned=False)
         kernel = config.kernel
@@ -193,7 +218,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None
               n, m, n, k, ACTIVATION_CODES[activation],
               a.dtype == torch.float32, out_dtype == torch.float32, b_kmajor,
               config.bm, config.bk, config.bn, KERNEL_CODES[kernel],
-              config.stages, k_chunk, config.group_m, ws, counters,
+              config.stages, k_chunk, config.group_m, vec, ws, counters,
               stream or 0)
     err = lib.gemm_launch_packed(addr, alpha, beta)
     if err == -1:

@@ -141,6 +141,86 @@ def test_cuda_gemm_every_schedule_matches_plain_version(cuda, sched, kmajor):
     torch.testing.assert_close(got.float(), want.float(), **BF16)
 
 
+def _f32_with_stride(dev, seed, rows, cols, vec_bytes, scale=1.0):
+    """A (rows, cols) f32 view whose row stride admits ``vec_bytes``-wide
+    loads and no wider (16, 8; 4: an odd stride), over seeded values."""
+    floats = vec_bytes // 4
+    ld = -(-cols // floats) * floats
+    if vec_bytes == 8 and ld % 4 == 0:
+        ld += 2
+    if vec_bytes == 4 and ld % 2 == 0:
+        ld += 1
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(rows, ld, generator=gen, device=dev) * scale)[:, :cols]
+
+
+SIMT_SCHEDULES = sorted(instantiated_schedules()["simt"])
+
+
+@pytest.mark.parametrize("vec", [16, 8, 4])
+@pytest.mark.parametrize("kmajor", [False, True], ids=["rowmajor", "kmajor"])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["f32out", "bf16out"])
+@pytest.mark.parametrize("m,k,n", [(300, 1001, 333), (37, 100, 77),
+                                   (129, 8, 64), (200, 2, 5)])
+def test_cuda_simt_is_bit_equal_to_fma(cuda, m, k, n, out, kmajor, vec):
+    """The ``simt`` kernel, under every schedule ``gemm.cu`` instantiates,
+    gives the bits of an explicit ``fma`` launch at ragged shapes: both B
+    layouts, 16- and 8-byte vector loads (operands whose row strides allow
+    only 4 go to ``fma`` in the wrapper), f32 and bf16 out, with C, a bias,
+    alpha, beta and each activation; a K of 2 and an N of 5 too."""
+    from repro_torch.core.tile_config import TileConfig
+    from repro_torch.kernels.gemm import gemm_cuda, simt_vector_bytes
+    a = _f32_with_stride(cuda, m + k, m, k, vec)
+    b = (_f32_with_stride(cuda, k + n, n, k, vec, k ** -0.5).t() if kmajor
+         else _f32_with_stride(cuda, k + n, k, n, vec, k ** -0.5))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    c = torch.randn(m, n, generator=gen, device=cuda)
+    bias = torch.randn(n, generator=gen, device=cuda)
+    want_vec = simt_vector_bytes(a.data_ptr(), a.stride(0), b.data_ptr(),
+                                 b.stride(0), b.stride(1),
+                                 int(b.stride(1) != 1 and b.stride(0) == 1))
+    assert want_vec == (0 if vec == 4 else vec)
+    path = "simt" if want_vec else "fma"
+    fma = TileConfig(64, 16, 64, kernel="fma")
+    for act in ACTIVATIONS:
+        kw = dict(alpha=0.5, beta=-1.5, bias=bias, activation=act,
+                  out_dtype=out)
+        yard = gemm_cuda(a, b, c, config=fma, **kw)
+        for bm, bk, bn, st in SIMT_SCHEDULES:
+            cfg = TileConfig(bm, bk, bn, kernel="simt", stages=st, group_m=3)
+            before = gemm_cuda.launches_by_path[path]
+            got = gemm_cuda(a, b, c, config=cfg, **kw)
+            assert gemm_cuda.launches_by_path[path] == before + 1, path
+            torch.cuda.synchronize()
+            assert torch.equal(got, yard), (cfg.schedule, act)
+    want = ref.gemm_ref(a, b, c, **kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32 if out == torch.float32 else BF16))
+
+
+def test_cuda_f32_rows_at_m8_on_fma_equal_them_inside_m300_on_simt(cuda):
+    """f32 rows computed at M = 8 (``fma``, the f32 oracles' decode) equal
+    the same rows inside an M = 300 product (``simt``, their prefill), bit
+    for bit, in both B layouts and at the unembed's width, each product
+    through the table's schedule."""
+    from repro_torch.kernels.gemm import gemm_cuda
+    for k, n, kmajor in ((2048, 2048, False), (2048, 50280, True),
+                         (1280, 51866, True), (1000, 334, False)):
+        a, b = _operands(cuda, k + n, 300, k, n, dtype=torch.float32,
+                         kmajor=kmajor)
+        run = lambda x: gemm_cuda(x, b, config=gemm_tiles(
+            torch.float32, x.shape[0], k, n), activation="silu")
+        before = dict(gemm_cuda.launches_by_path)
+        full = run(a)
+        assert gemm_cuda.launches_by_path["simt"] == before["simt"] + 1
+        for lo in (0, 128, 292):
+            rows = run(a[lo:lo + 8])
+            torch.cuda.synchronize()
+            assert torch.equal(rows, full[lo:lo + 8]), (k, n, lo)
+        assert gemm_cuda.launches_by_path["fma"] == before["fma"] + 3
+
+
 @pytest.mark.parametrize("k,n,kmajor", [
     (2048, 512, False), (8192, 2048, False), (2048, 8192, False),
     (2048, 4160, True)])
@@ -766,8 +846,9 @@ def test_cuda_every_committed_entry_matches_plain_version(cuda):
 def test_cuda_fallback_profile_runs_the_hand_tables(cuda, hw_name):
     """CUDA tensors served under a profile with no default tier (or an
     unknown name) take the hand tables from the fallback tier: bf16 on the
-    decode and wgmma kernels, f32 on fma (never a refused schedule), bf16
-    flash on wgmma; each against its plain version."""
+    decode and wgmma kernels, f32 on fma (M <= 16) and simt (never a
+    refused schedule), bf16 flash on wgmma; each against its plain
+    version."""
     import warnings
 
     from repro_torch.core import execution_context, flash_attention, matmul
@@ -775,7 +856,8 @@ def test_cuda_fallback_profile_runs_the_hand_tables(cuda, hw_name):
     from repro_torch.kernels.gemm import gemm_cuda
     cases = [(8, 2048, 512, torch.bfloat16, "decode"),
              (256, 2048, 512, torch.bfloat16, "wgmma"),
-             (8, 256, 192, torch.float32, "fma")]
+             (8, 256, 192, torch.float32, "fma"),
+             (300, 256, 192, torch.float32, "simt")]
     with warnings.catch_warnings(), execution_context(hardware=hw_name):
         warnings.simplefilter("ignore")
         for m, k, n, dtype, path in cases:
@@ -829,7 +911,7 @@ def test_cuda_gemm_and_flash_refuse_operands_that_require_grad(cuda):
 def test_cuda_matmul_function_matches_plain_autograd_at_training_shapes(
         cuda, name, k, n, act, kmajor, out):
     """M = 8 x 512 = 4096: the forward and dX, dW on the GEMM kernel (bf16
-    products on wgmma; the f32 cotangent of the unembed on fma) against
+    products on wgmma; the f32 cotangent of the unembed on simt) against
     autograd through ``gemm_ref`` on the same operands."""
     from repro_torch import kernels
     from repro_torch.core import matmul
@@ -846,7 +928,7 @@ def test_cuda_matmul_function_matches_plain_autograd_at_training_shapes(
     yr = ref.gemm_ref(xr, wr, activation=act, out_dtype=out)
     (yr.float() * ct).sum().backward()
     torch.cuda.synchronize()
-    want = {"wgmma": 1, "fma": 2} if out == torch.float32 else {"wgmma": 3}
+    want = {"wgmma": 1, "simt": 2} if out == torch.float32 else {"wgmma": 3}
     assert {p: c for p, c in paths.items() if c} == want, paths
     for got, exp in ((y, yr), (xa.grad, xr.grad), (wb.grad, wr.grad)):
         assert got.dtype == exp.dtype
@@ -857,7 +939,8 @@ def test_cuda_matmul_function_matches_plain_autograd_at_training_shapes(
 
 def test_cuda_train_step_matches_the_cpu(cuda):
     """One float32 train step of reduced llama3.2-1b on the card (every
-    product on the fma kernel) against the same step on the CPU."""
+    product on the f32 kernels, simt above M = 16) against the same step
+    on the CPU."""
     import dataclasses
 
     from repro_torch import kernels
@@ -882,7 +965,8 @@ def test_cuda_train_step_matches_the_cpu(cuda):
             state, TokenPipeline(data, device=dev)(0))
         results[dev] = (new, metrics, kernels.gemm_launches_by_path())
     paths = results["cuda"][2]
-    assert paths["fma"] > 0 and sum(paths.values()) == paths["fma"], paths
+    assert paths["simt"] > 0 and sum(paths.values()) == paths["fma"] + \
+        paths["simt"], paths
     for k, v in results["cpu"][1].items():
         assert abs(float(results["cuda"][1][k]) - float(v)) <= 1e-4 * max(
             abs(float(v)), 1.0), k
@@ -914,7 +998,7 @@ def _train_batch(model, dev, batch=4, seq=32):
                                   "mamba2-130m", "zamba2-2.7b"])
 def test_cuda_train_step_of_every_family_matches_the_cpu(cuda, arch):
     """One float32 train step of each family's reduced model with remat on
-    the card (every product on the fma kernel) against the CPU: metrics
+    the card (every product on the f32 kernels) against the CPU: metrics
     within 1e-4, every gradient leaf within 1e-4 of its max (a key bias,
     whose gradient is 0 in exact arithmetic, at roundoff on both), parameters
     within 1e-4 where the gradient is at least 1e-3 of its leaf's max and
@@ -947,7 +1031,8 @@ def test_cuda_train_step_of_every_family_matches_the_cpu(cuda, arch):
         results[dev] = (tree_paths(new.params), metrics, tree_paths(grads),
                         kernels.gemm_launches_by_path())
     paths = results["cuda"][3]
-    assert paths["fma"] > 0 and sum(paths.values()) == paths["fma"], paths
+    assert paths["simt"] > 0 and sum(paths.values()) == paths["fma"] + \
+        paths["simt"], paths
     for k, v in results["cpu"][1].items():
         assert abs(float(results["cuda"][1][k]) - float(v)) <= 1e-4 * max(
             abs(float(v)), 1.0), k

@@ -108,10 +108,10 @@ def test_gemm_rejects_unknown_activation_and_bad_shapes():
 def test_tile_table_covers_every_m_and_names_instantiated_tiles():
     from repro_torch.kernels.gemm import instantiated_schedules
     inst = instantiated_schedules()
-    assert set(inst) == {"wmma", "fma", "decode", "wgmma"}
+    assert set(inst) == {"wmma", "fma", "decode", "wgmma", "simt"}
     assert all(inst.values())
     table = [t for rows in H100_GEMM_TILES.values() for *_, t in rows]
-    table += [t for _, t in H100_UNALIGNED_TILES]
+    table += [t for rows in H100_UNALIGNED_TILES.values() for _, t in rows]
     for tile in table:
         assert (tile.bm, tile.bk, tile.bn, tile.stages) in inst[tile.kernel], \
             tile.schedule
@@ -124,7 +124,10 @@ def test_tile_table_covers_every_m_and_names_instantiated_tiles():
     assert gemm_tiles(torch.bfloat16, 8, 2048, 2048).kernel == "decode"
     assert gemm_tiles(torch.bfloat16, 17, 2048, 2048).kernel == "wgmma"
     assert gemm_tiles(torch.float32, 8, 2048, 2048).kernel == "fma"
+    assert gemm_tiles(torch.float32, 16, 2048, 2048).kernel == "fma"
+    assert gemm_tiles(torch.float32, 17, 2048, 2048).kernel == "simt"
     assert gemm_tiles(torch.bfloat16, 8, 1, 1, aligned=False) == TileConfig(16, 64, 64)
+    assert gemm_tiles(torch.float32, 4096, 1, 1, aligned=False).kernel == "fma"
     for dtype, rows in H100_FLASH_TILES.items():
         for s in (1, 32, 33, 4096):
             for d in (16, 64, 128):
@@ -182,6 +185,77 @@ def test_gemm_wrapper_sends_unaligned_operands_to_wmma():
     assert not fits("decode", a[:, 1:2041], w[1:2041], 2040, 512)
     assert not fits("decode", a, w[:, :100], 2048, 100)         # N % 8
     assert fits("wgmma", a, w[:, :104], 2048, 104)
+
+
+def test_simt_schedules_parse_and_every_f32_row_names_one():
+    """The ``simt`` kernel's ``dispatch_simt`` lines are read as its
+    schedules; every f32 row of the hand table, and of its unaligned rows,
+    names a schedule of the kernel it runs on: ``fma`` up to M = 16,
+    ``simt`` beyond, ``fma`` for operands no vector path takes."""
+    from repro_torch.core.tile_config import gemm_kernel_for
+    from repro_torch.kernels.gemm import KERNEL_CODES, instantiated_schedules
+    inst = instantiated_schedules()
+    assert (128, 16, 128, 1) in inst["simt"] and (128, 8, 64, 1) in inst["simt"]
+    assert all(bm % 32 == 0 and bn % 64 == 0 and bk % 4 == 0
+               for bm, bk, bn, _ in inst["simt"])
+    assert KERNEL_CODES["simt"] not in [v for k, v in KERNEL_CODES.items()
+                                        if k != "simt"]
+    for max_m, _n, tile in H100_GEMM_TILES[torch.float32]:
+        assert (tile.bm, tile.bk, tile.bn, tile.stages) in inst[tile.kernel]
+        assert tile.kernel == gemm_kernel_for(torch.float32, max_m or 17)
+    for _m, tile in H100_UNALIGNED_TILES[torch.float32]:
+        assert tile.kernel == "fma"
+        assert (tile.bm, tile.bk, tile.bn, tile.stages) in inst["fma"]
+    for m in (17, 300, 2048, 4096):
+        for k, n in ((128256, 2048), (4096, 128256), (51866, 1280),
+                     (4096, 51866), (50280, 768), (32000, 2560)):
+            assert gemm_tiles(torch.float32, m, k, n).kernel == "simt"
+
+
+def _simt_route(a, b):
+    """(kernel, vector bytes) the wrapper picks for f32 operands ``a @ b``
+    of the shapes and strides these CPU tensors have."""
+    from repro_torch.kernels.gemm import simt_vector_bytes
+    m, k = a.shape
+    n = b.shape[1]
+    kmajor = int(b.stride(1) != 1 and b.stride(0) == 1)
+    vec = simt_vector_bytes(a.data_ptr(), a.stride(0), b.data_ptr(),
+                            b.stride(0), b.stride(1), kmajor)
+    tile = gemm_tiles(torch.float32, m, k, n, aligned=bool(vec))
+    return tile.kernel, vec if tile.kernel == "simt" else 0
+
+
+def test_simt_route_and_vector_width_from_bases_and_strides():
+    """The unembed's f32 backward at each train phase's vocab: 16-byte
+    loads where the rows allow them; whisper-large-v3's 51866-wide
+    cotangent rows (8 bytes, not 16) take the 8-byte path in dX (A = dZ)
+    and dW (B = dZ); a 4-byte-only stride or base goes to ``fma``; M <= 16
+    stays on ``fma`` whatever the strides."""
+    f32 = torch.float32
+    for v, d in ((128256, 64), (32000, 64), (50280, 48)):
+        dz = torch.zeros(32, v, dtype=f32)
+        w = torch.zeros(v, d, dtype=f32)
+        assert _simt_route(dz, w) == ("simt", 16)                # dX, tied
+        assert _simt_route(dz, torch.zeros(d, v, dtype=f32).t()) == (
+            "simt", 16)                                          # dX, untied
+        assert _simt_route(torch.zeros(d, 32, dtype=f32), dz) == ("simt", 16)
+    dz = torch.zeros(32, 51866, dtype=f32)
+    head = torch.zeros(51866, 40, dtype=f32)       # W.T of a K-major head
+    assert _simt_route(dz, head) == ("simt", 8)                  # dX
+    assert _simt_route(torch.zeros(40, 32, dtype=f32), dz) == ("simt", 8)
+    assert _simt_route(dz, torch.zeros(40, 51866, dtype=f32).t()) == (
+        "simt", 8)                                               # K-major B
+    odd = torch.zeros(32, 2049, dtype=f32)                       # 4-byte rows
+    assert _simt_route(odd, torch.zeros(2049, 64, dtype=f32)) == ("fma", 0)
+    assert _simt_route(torch.zeros(32, 64, dtype=f32),
+                       torch.zeros(64, 2049, dtype=f32)) == ("fma", 0)
+    base = torch.zeros(32 * 66, dtype=f32)[1:1 + 32 * 64].view(32, 64)
+    assert base.data_ptr() % 8 == 4
+    assert _simt_route(base, torch.zeros(64, 64, dtype=f32)) == ("fma", 0)
+    two = torch.zeros(32 * 66, dtype=f32)[2:2 + 32 * 64].view(32, 64)
+    assert _simt_route(two, torch.zeros(64, 64, dtype=f32)) == ("simt", 8)
+    assert _simt_route(torch.zeros(16, 64, dtype=f32),
+                       torch.zeros(64, 64, dtype=f32)) == ("fma", 0)
 
 
 def test_launch_counts_by_path_reset_together():

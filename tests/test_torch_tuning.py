@@ -537,7 +537,8 @@ def test_flash_cost_matches_reference(causal):
 @pytest.mark.parametrize("shape,dtype", [
     ((8, 2048, 2048), torch.bfloat16), ((1, 768, 3352), torch.bfloat16),
     ((8, 2048, 128256), torch.bfloat16), ((2048, 2048, 512), torch.bfloat16),
-    ((12000, 1280, 5120), torch.bfloat16), ((8, 2048, 2048), torch.float32)])
+    ((12000, 1280, 5120), torch.bfloat16), ((8, 2048, 2048), torch.float32),
+    ((4096, 128256, 2048), torch.float32), ((1280, 4096, 51866), torch.float32)])
 def test_model_sweep_gemm_records_exact_over_taken_schedules(shape, dtype):
     reg = registry.TileRegistry()
     res = tuner.sweep_gemm(*shape, dtype=dtype, mode="model",
@@ -555,6 +556,28 @@ def test_model_sweep_gemm_records_exact_over_taken_schedules(shape, dtype):
     assert guided.evaluated == min(3, res.candidates_total)
     assert [p.config for p in guided.points] == [
         p.config for p in res.points[:3]]
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 128256, 2048), (2048, 4096, 128256),
+                                   (4096, 50280, 768), (300, 64, 96)])
+def test_tuning_space_f32_candidates_are_simt_schedules_by_group(m, k, n):
+    """Above M = 16 an f32 product's candidates are every ``simt`` schedule
+    ``gemm.cu`` instantiates (read from its ``dispatch_simt`` lines), each
+    at every raster grouping up to the tile rows M has, and the hand
+    table's schedule; at M <= 16 they stay ``fma``'s."""
+    from repro_torch.core.tile_config import TuningSpace
+    cands = list(TuningSpace().candidates(torch.float32, m, k, n))
+    inst = instantiated_schedules()["simt"]
+    assert {c.kernel for c in cands} == {"simt"}
+    assert {(c.bm, c.bk, c.bn, c.stages) for c in cands} == inst
+    hand = gemm_tiles(torch.float32, m, k, n)
+    assert hand in cands
+    for c in cands:
+        assert c == hand or c.group_m == 1 or c.group_m <= -(-m // c.bm)
+        assert registry.takes("gemm", torch.float32, (m, k, n), c)
+    small = list(TuningSpace().candidates(torch.float32, 16, k, n))
+    assert {c.kernel for c in small} == {"fma"}
+    assert not registry.takes("gemm", torch.float32, (16, k, n), cands[0])
 
 
 def tuner_same(a, b, k):
