@@ -38,8 +38,15 @@ Phases, each printing one JSON line:
    run one measured sweep (llama's decode gate/up, exhaustive, 3 repeats)
    whose winner must land as an ``exact`` entry that the next
    ``core.matmul`` launches (equal bits to a direct launch of it), and
-   print its device time beside the hand table's; then reload the
-   committed table.
+   print its device time beside the hand table's; every entry must be
+   measured, and the f32 entries (the unembed's backward products at
+   16384 rows, one entry's operands at a time: up to 10.7 GB) on ``simt``
+   or ``fma``.  Then ``scripts/torch_tune_all.py --arch mamba2-130m``
+   (guided top-2, 3 repeats) measures into a scratch table in a fresh
+   process: exit 0, no JAX or reference module imported, every entry
+   measured on this card, keyed in the committed table too and resolved
+   ``exact`` once loaded, ``core.matmul`` launching one; then the
+   committed table is loaded again.
 5. ``serve``   — full-width llama3.2-1b in bf16 with seeded random weights,
    flash prefill: 12 requests through ``Engine`` over 8 slots; the kernels'
    launch counts by path are set to 0 just before and read just after:
@@ -57,7 +64,16 @@ Phases, each printing one JSON line:
    ``validate_profile`` on the device timeline, with one
    ``serve.decode_chunk`` marker and one device-to-host copy a chunk, one
    ``serve.prefill_admit`` an admission prefill, K1's kernels in the
-   ``gemm`` family and K2's in ``attention``.
+   ``gemm`` family and K2's in ``attention``.  Then ``serve_sync``: the
+   per-token-sync baseline (``PerTokenSyncEngine``) on the same model and
+   weights and the reference serving suite's traffic (8 prompts of 16
+   tokens, 48 new), with the launch counts set to 0 around one pass
+   (every product on decode or wgmma, every prefill attention on the
+   wgmma flash kernel), one traced pass (one device-to-host copy a
+   decoded token), decode tok/s of it and of the fused engine (wave),
+   interleaved, best of 3 after 2 warm-ups, their ratio, prefill tok/s,
+   the bf16 tokens equal to the fused engine's (a count), and a float32
+   pass (2 layers) whose tokens must equal the per-prompt oracle's.
 6. ``serve_features`` — the same model and weights through the paths the
    serving slice after the first added, each pass with the launch counts
    set to 0 just before and read just after, each requiring every GEMM on
@@ -194,8 +210,9 @@ Phases, each printing one JSON line:
    marker and K1's kernels in the ``gemm`` family.
 16-19. ``train_audio``, ``train_ssm``, ``train_hybrid``, ``train_vlm`` —
    the same for the other families (``TRAIN_PHASES``), with seeded extra
-   inputs beside the tokens: whisper-large-v3 at full width and depth
-   (8 x 512 decoder tokens, 8 x 1500 frames; 4 steps, a checkpoint at
+   inputs beside the tokens: whisper-large-v3 at full width and 16 + 16
+   of its 32 + 32 layers (8 x 512 decoder tokens, 8 x 1500 frames; 4
+   steps, a checkpoint at
    step 2 whose restore must keep the K-major head K-major, steps 3-4
    again bit for bit), mamba2-130m at full width and depth (8 x 512, 4
    steps), zamba2-2.7b at full width and 2 of 9 units (8 x 512, 3 steps)
@@ -244,6 +261,11 @@ the other train phases (whisper at 8 x 1500 encoder and 8 x 512
 decoder rows, mamba2, zamba2, the vlm at 4 x 512 and its cross K/V at 4
 x 1601 image tokens), with each unembed at N 51866 / 50280 / 32000 /
 128256.
+
+After the roofline, a ``provenance`` line counts how each main path's
+problems resolve in the tuning registry (``exact`` / ``nearest`` /
+``default``): the serve phase's decode GEMMs and prefill flash buckets and
+each train phase's step GEMMs.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -984,10 +1006,23 @@ def train_unembed_f32(torch, rows):
 # phase: tuning
 # ---------------------------------------------------------------------------
 
+def close(torch, got, want, tol):
+    """(max abs error, ``allclose`` at atol = rtol = ``tol``) of two
+    outputs, compared 1024 rows at a time: an f32 copy of a whole 16384 x
+    163840 output is 10.7 GB."""
+    err, ok = 0.0, True
+    for g, w in zip(got.split(1024), want.split(1024)):
+        g, w = g.float(), w.float()
+        err = max(err, (g - w).abs().max().item())
+        ok = ok and bool(torch.allclose(g, w, atol=tol, rtol=tol))
+    return err, ok
+
+
 def hold_schedule(torch, gen, op, cfg, shape, heads=(32, 8)):
-    """Launch ``cfg`` at ``shape`` (gemm (m, k, n): B K-major where N is not
-    a multiple of 8, as the models keep such heads, f32 operands for the
-    f32 kernels; flash (sq, skv, d): 8 rows of ``heads``) and hold it
+    """Launch ``cfg`` at ``shape`` (gemm (m, k, n): bf16 operands with B
+    K-major where N is not a multiple of 8, as the models keep such heads;
+    f32 operands for the f32 kernels, B row-major, as the unembed's f32
+    cotangent lies; flash (sq, skv, d): 8 rows of ``heads``) and hold it
     against the plain version.  Returns (max abs error, the wrapper took
     ``cfg``'s kernel)."""
     from repro_torch.kernels import ref
@@ -996,10 +1031,10 @@ def hold_schedule(torch, gen, op, cfg, shape, heads=(32, 8)):
     tol = 2e-2
     if op == "gemm":
         m, k, n = shape
-        dtype = torch.bfloat16
+        dtype, b_t = torch.bfloat16, n % 8 != 0
         if cfg.kernel in F32_KERNELS:
-            dtype, tol = torch.float32, 1e-4
-        a, b = gemm_operands(torch, gen, m, k, n, dtype, n % 8 != 0)
+            dtype, tol, b_t = torch.float32, 1e-4, False
+        a, b = gemm_operands(torch, gen, m, k, n, dtype, b_t)
         fn, counts = gemm_cuda, gemm_cuda.launches_by_path
         before = counts[cfg.kernel]
         got = gemm_cuda(a, b, config=cfg, activation="silu")
@@ -1012,12 +1047,15 @@ def hold_schedule(torch, gen, op, cfg, shape, heads=(32, 8)):
         counts = flash_attention_cuda.launches_by_path
         before = counts[cfg.kernel]
         got = flash_attention_cuda(q, k, v, config=cfg, kv_start=kv_start)
-        want = ref.flash_attention_ref(q, k, v, kv_start=kv_start)
+        # one batch row at a time: the plain version's (B, H, S, S) f32
+        # scores are 16 GiB at 8 rows of 32 heads over 4096 tokens
+        want = torch.cat([ref.flash_attention_ref(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_start=kv_start[i:i + 1])
+            for i in range(q.shape[0])])
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
     # bf16 output: one bf16 ulp of values up to ~4 (as the kernels phase);
     # f32: summation order over K
-    ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+    err, ok = close(torch, got, want, tol)
     return err, ok and counts[cfg.kernel] == before + 1
 
 
@@ -1046,12 +1084,19 @@ def phase_tuning(torch):
     assert not db.stale(), [r.shape for r in db.stale()]
     gen = torch.Generator(device="cuda").manual_seed(18)
     entries = []
+    t0 = time.perf_counter()
     for rec in db.records():
+        # one entry's operands live at a time (up to 10.7 GB in f32)
         err, ok = hold_schedule(torch, gen, rec.op, rec.config, rec.shape)
-        entries.append({"op": rec.op, "shape": list(rec.shape),
+        entries.append({"op": rec.op, "dtype": rec.dtype,
+                        "shape": list(rec.shape),
                         "schedule": rec.config.schedule,
+                        "source": rec.source,
                         "measured_us": rec.seconds * 1e6,
                         "max_abs_err": err, "ok": ok})
+    torch.cuda.empty_cache()
+    held_s = time.perf_counter() - t0
+    f32 = [e for e in entries if e["dtype"] == "float32"]
     # every schedule the dispatch lines instantiate and the hand tables do
     # not name, at ragged shapes (the lines this slice added among them)
     hand = {(t.kernel, t.bm, t.bk, t.bn, t.stages)
@@ -1106,17 +1151,106 @@ def phase_tuning(torch):
              "lookup": look.source,
              "matmul_took_winner": took and bool(torch.equal(via_matmul,
                                                              direct))}
-    # back to the committed table for the serve phases
+    smoke = tune_all_smoke(torch, db)
+    # back to the committed table for the serve phases (its keys hold every
+    # key the sweep and the smoke's table put: ``covered``)
     tuning_db.load_into_registry(GLOBAL_REGISTRY, path, strict=True)
     out = {"phase": "tuning", "table": os.path.relpath(path, HERE),
            "measured_on": db.measured_on, "entries": len(db),
-           "ops": db.ops(), "entries_held": entries, "new_lines": lines,
-           "sweep": sweep}
+           "ops": db.ops(), "entries_by_dtype": {
+               dt: sum(e["dtype"] == dt for e in entries)
+               for dt in sorted({e["dtype"] for e in entries})},
+           "entries_held_s": held_s, "entries_held": entries,
+           "f32_entries": len(f32), "new_lines": lines, "sweep": sweep,
+           "tune_all": smoke}
     emit(out)
     bad = [e for e in entries + lines if not e["ok"]]
     assert not bad, f"tuned or new schedules disagree or did not run: {bad}"
+    assert all(e["source"] == "measure" for e in entries), "model entries"
+    assert f32 and all(e["schedule"].split(":")[0] in ("simt", "fma")
+                       for e in f32), f32
     assert look.source == "exact" and look.config == won, look
     assert sweep["matmul_took_winner"], sweep
+    assert smoke["ok"], smoke
+    return out
+
+
+#: runs a script as ``__main__`` and prints the JAX and reference modules
+#: it imported (argv: the script, then its arguments)
+NO_JAX_RUN = """\
+import runpy, sys
+sys.argv = sys.argv[1:]
+code = 0
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    code = e.code
+print("IMPORTED", sorted(m for m in sys.modules if m in ("jax", "repro")
+                         or m.startswith(("jax.", "repro."))))
+sys.exit(code)
+"""
+
+
+def tune_all_smoke(torch, committed):
+    """``scripts/torch_tune_all.py --arch mamba2-130m`` measured into a
+    scratch table in a fresh process: exit 0, neither JAX nor the reference
+    package imported, every entry measured on this card and keyed in the
+    ``committed`` table too; loaded, each resolves ``exact`` to its own
+    schedule, and ``core.matmul`` at its smallest bf16 shape launches that
+    schedule's kernel."""
+    import shutil
+
+    from repro_torch.core import (GLOBAL_REGISTRY, current_hardware, matmul,
+                                  tuning_db)
+    from repro_torch.kernels.gemm import gemm_cuda
+    tmp = os.path.join(HERE, "build", "tune_all_smoke")
+    shutil.rmtree(tmp, ignore_errors=True)
+    cmd = [sys.executable, "-c", NO_JAX_RUN,
+           os.path.join(HERE, "scripts", "torch_tune_all.py"),
+           "--arch", "mamba2-130m", "--db-dir", tmp, "--repeats", "3",
+           "--top-k", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=HERE)
+    out = {"command": " ".join(cmd[3:]), "rc": proc.returncode,
+           "seconds": time.perf_counter() - t0,
+           "stdout_tail": proc.stdout[-1500:].splitlines()[-4:]}
+    if proc.returncode != 0:
+        out.update(ok=False, stderr_tail=proc.stderr[-3000:])
+        return out
+    path = tuning_db.db_path("h100", tmp)
+    db = tuning_db.TuningDB.from_file(path)
+    recs = db.records()
+    tuning_db.load_into_registry(GLOBAL_REGISTRY, path, strict=True)
+    hw = current_hardware()
+    exact = 0
+    for r in recs:
+        res = GLOBAL_REGISTRY.lookup_op(r.op, hw, r.dtype, r.shape)
+        exact += res.source == "exact" and res.config == r.config
+    rec = min((r for r in recs if r.dtype == "bfloat16"),
+              key=lambda r: math.prod(r.shape))
+    m, k, n = rec.shape
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(
+        torch.bfloat16)
+    before = gemm_cuda.launches_by_path[rec.config.kernel]
+    matmul(x, w)
+    torch.cuda.synchronize()
+    took = gemm_cuda.launches_by_path[rec.config.kernel] == before + 1
+    covered = all(committed.get_op(r.op, r.dtype, r.shape) for r in recs)
+    out.update(entries=len(recs), measured_on=db.measured_on,
+               covered_by_committed=covered,
+               by_dtype={dt: sum(r.dtype == dt for r in recs)
+                         for dt in sorted({r.dtype for r in recs})},
+               exact=exact, matmul_shape=[m, k, n],
+               matmul_schedule=rec.config.schedule, matmul_took_it=took,
+               imported=next((ln for ln in proc.stdout.splitlines()
+                              if ln.startswith("IMPORTED")), None))
+    out["ok"] = (out["imported"] == "IMPORTED []" and len(recs) > 0
+                 and all(r.source == "measure" for r in recs)
+                 and db.measured_on == smi() and exact == len(recs) and took
+                 and covered)
     return out
 
 
@@ -1299,8 +1433,155 @@ def phase_serve(torch):
                          "max_new": 8, "tokens_equal_oracle": got == want}
     emit(serve)
     ctx = {"cfg": cfg, "model": model, "params": params, "prompts": prompts,
-           "outs": outs, "m32": m32, "p32": p32, "prompts32": prompts32}
+           "outs": outs, "m32": m32, "p32": p32, "prompts32": prompts32,
+           "lookups": {"serve decode gemm": lookups,
+                       "serve prefill flash": st["prefill_flash_lookups"]}}
     return launches, {"gemm": gemm_paths, "flash_attention": flash_paths}, ctx
+
+
+# ---------------------------------------------------------------------------
+# phase: serve_sync
+# ---------------------------------------------------------------------------
+
+#: the reference serving suite's traffic and timing
+#: (``benchmarks/serving.py:45-47, 63-64, 80-104``): 8 prompts of 16
+#: tokens, ``(7i + j) % vocab``, 48 new tokens; the fused and the sync
+#: engine interleaved, 2 warm-ups each, the best of 3 rounds by decode time
+SYNC_BATCH, SYNC_PLEN, SYNC_NEW = 8, 16, 48
+SYNC_WARMUP, SYNC_REPEATS = 2, 3
+
+
+def phase_serve_sync(torch, ctx):
+    """The per-token-sync baseline (``serve.PerTokenSyncEngine``, profile
+    on) on the serve phase's full-width llama3.2-1b and weights, beside the
+    fused engine (``Engine``, wave scheduler) on the reference serving
+    suite's traffic.  Launch counts from 0 around one sync pass: every
+    product on K1's decode or wgmma kernel, each layer's prefill attention
+    on K2's wgmma kernel.  A traced sync pass: one device-to-host copy a
+    decoded token, one ``reference.prefill`` and a ``reference.decode``
+    span a step after the first.  Decode tok/s of both engines (interleaved,
+    best of 3), their ratio and prefill tok/s; the bf16 tokens equal to the
+    fused engine's, counted; a float32 pass (full width, 2 layers) whose
+    sync tokens must equal the per-prompt oracle's."""
+    from repro_torch import kernels
+    from repro_torch.serve import (Engine, PerTokenSyncEngine, ServeConfig,
+                                   generate_per_prompt)
+
+    cfg, model, params = ctx["cfg"], ctx["model"], ctx["params"]
+    prompts = [[(7 * i + j) % cfg.vocab_size for j in range(SYNC_PLEN)]
+               for i in range(SYNC_BATCH)]
+    sync = PerTokenSyncEngine(model, params, max_len=256, profile=True)
+    fused = Engine(model, params, ServeConfig(
+        max_batch=SYNC_BATCH, max_len=256, profile=True, scheduler="wave"))
+    kernels.reset_launch_counts()
+    sync_outs = sync.generate(prompts, SYNC_NEW)
+    torch.cuda.synchronize()
+    run = {"launches": kernels.launch_counts(),
+           "gemm_launches_by_path": kernels.gemm_launches_by_path(),
+           "flash_launches_by_path": kernels.flash_launches_by_path()}
+    gp, fp = run["gemm_launches_by_path"], run["flash_launches_by_path"]
+    assert all(len(o) == SYNC_NEW for o in sync_outs), sync_outs
+    # a layer's 7 products (q, k, v, o, gate, up, down) at 8 x 16 rows on
+    # wgmma; the prefill's last-position unembed and each later step's 7 a
+    # layer + the unembed at 8 rows on decode
+    layers = cfg.num_layers
+    assert gp["wgmma"] == 7 * layers, gp
+    assert gp["decode"] == 1 + (SYNC_NEW - 1) * (7 * layers + 1), gp
+    assert gp["wmma"] == gp["fma"] == gp["simt"] == 0, gp
+    assert fp["wgmma"] == layers and fp["fma"] == 0, fp
+
+    # one traced pass: the host copies and the step spans
+    outs_traced, events, secs = traced(
+        "serve_sync", lambda: sync.generate(prompts, SYNC_NEW))
+    _, prof = profile_summary("serving", events)
+    spans = {label: dict(zip(("count", "wall_ms", "device_busy_ms"),
+                             span_times(events, label)))
+             for label in ("reference.prefill", "reference.decode")}
+    del events
+    assert outs_traced == sync_outs
+    assert prof["host_syncs"] == SYNC_NEW, prof["host_syncs"]
+    assert spans["reference.prefill"]["count"] == 1, spans
+    assert spans["reference.decode"]["count"] == SYNC_NEW - 1, spans
+
+    def fused_run():
+        s0 = fused.stats()
+        fused.generate(prompts, SYNC_NEW)
+        s1 = fused.stats()
+        return (s1["prefill_seconds"] - s0["prefill_seconds"],
+                s1["decode_seconds"] - s0["decode_seconds"])
+
+    def sync_run():
+        sync.generate(prompts, SYNC_NEW)
+        return sync.last_prefill_s, sync.last_decode_s
+
+    fused_outs = fused.generate(prompts, SYNC_NEW)
+    for _ in range(SYNC_WARMUP - 1):
+        fused.generate(prompts, SYNC_NEW)
+    for _ in range(SYNC_WARMUP - 1):     # the counted pass was the first
+        sync.generate(prompts, SYNC_NEW)
+    rounds, best = [], {}
+    for _ in range(SYNC_REPEATS):
+        for name, fn in (("fused", fused_run), ("sync", sync_run)):
+            pair = fn()
+            rounds.append({"engine": name, "prefill_s": pair[0],
+                           "decode_s": pair[1]})
+            if name not in best or pair[1] < best[name][1]:
+                best[name] = pair
+    new_tokens = SYNC_BATCH * SYNC_NEW
+    decode = {k: new_tokens / v[1] for k, v in best.items()}
+    prefill = {k: SYNC_BATCH * SYNC_PLEN / v[0] for k, v in best.items()}
+    equal = sum(a == b for fo, so in zip(fused_outs, sync_outs)
+                for a, b in zip(fo, so))
+    st = fused.stats()
+    assert st["device_transfers"] == st["waves"], st
+
+    # float32 pass: full width, 2 layers, tokens exact against the oracle
+    m32, p32 = ctx["m32"], ctx["p32"]
+    got = PerTokenSyncEngine(m32, p32, max_len=256).generate(prompts, 16)
+    want = generate_per_prompt(m32, p32, prompts, 16, max_len=256)
+    assert got == want, (got, want)
+    out = {
+        "phase": "serve_sync", "card": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi(), "model": cfg.name, "dtype": cfg.dtype,
+        "traffic": {"prompts": SYNC_BATCH, "prompt_tokens": SYNC_PLEN,
+                    "max_new": SYNC_NEW, "warmup": SYNC_WARMUP,
+                    "repeats": SYNC_REPEATS},
+        "main_run": "sync", "sync": run,
+        "decode_tok_per_s": decode,
+        "fused_over_sync_decode": decode["fused"] / decode["sync"],
+        "prefill_tok_per_s": prefill, "rounds": rounds,
+        "fused_waves": st["waves"], "fused_device_transfers":
+        st["device_transfers"],
+        "traced": {"host_copies": prof["host_syncs"], "spans": spans,
+                   "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+                   **secs},
+        "bf16_tokens_equal_fused": {"tokens": equal, "of": new_tokens,
+                                    "rows": sum(a == b for a, b in zip(
+                                        fused_outs, sync_outs))},
+        "f32_pass": {"layers": m32.cfg.num_layers, "requests": len(prompts),
+                     "max_new": 16, "tokens_equal_oracle": got == want},
+    }
+    emit(out)
+    del fused, sync
+    torch.cuda.empty_cache()
+    return out
+
+
+def provenance(serve_lookups, families):
+    """Each main path's registry provenance: how many of its problems
+    resolve ``exact``, ``nearest`` or ``default`` (the serve phase's decode
+    GEMM shapes and prefill flash buckets, ``serve_lookups``; each train
+    phase's step GEMMs)."""
+    groups = dict(serve_lookups)
+    groups.update({f"{f['phase']} gemm": f["step_gemm_provenance"]
+                   for f in families if "step_gemm_provenance" in f})
+    out = {}
+    for label, lookups in groups.items():
+        count = {}
+        for v in lookups.values():
+            count[v["source"]] = count.get(v["source"], 0) + 1
+        out[label] = dict(sorted(count.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2417,8 +2698,11 @@ TRAIN_PHASES = {
         f32_cut=dict(num_layers=2),
         wgmma=lambda c: 28 * c.num_layers + 1,
         dots_wgmma=lambda c: 21 * c.num_layers + 1),
+    # 16 + 16 of the 32 + 32 layers, to keep the script near half its
+    # time limit (the full depth ran here until the tuning table grew)
     "train_audio": dict(
-        arch="whisper-large-v3", cut={}, batch=(8, 512), steps=4, save_at=2,
+        arch="whisper-large-v3", cut=dict(num_layers=16, encoder_layers=16),
+        batch=(8, 512), steps=4, save_at=2,
         f32_cut=dict(num_layers=2, encoder_layers=2),
         wgmma=lambda c: 24 * c.encoder_layers + 40 * c.num_layers + 1),
     "train_ssm": dict(
@@ -3338,7 +3622,8 @@ def summarize(rows, launches, paths, features, families):
     """One entry per kernel: its main-path cases summed (each model's shapes
     once; ``by_model`` splits the sums), and the same sums per path with the
     serve phase's launches by path.  ``launches`` sums the main-path runs of
-    every model (the serve phase; the continuous run of serve_moe,
+    every model (the serve phase; serve_sync's counted sync pass; the
+    continuous run of serve_moe,
     serve_vlm, serve_stablelm, serve_audio and serve_hybrid; serve_ssm's
     forced wave run; each train phase's steps; each with the counts set
     to 0 before it);
@@ -3404,18 +3689,22 @@ def main(argv=None) -> int:
             with open(os.path.join(args.out, f"ptxas_{name}.log"), "w") as f:
                 f.write(log)
     rows = phase_kernels(torch, args.out)
-    phase_tuning(torch)
+    tuning = phase_tuning(torch)
     launches, paths, ctx = phase_serve(torch)
-    serve_outs = ctx["outs"]
+    serve_outs, serve_lookups = ctx["outs"], ctx["lookups"]
+    families = [phase_serve_sync(torch, ctx)]
     features = phase_serve_features(torch, ctx)
     phase_ir(torch, ctx)
-    families = [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx),
+    families += [phase_serve_moe(torch, ctx), phase_serve_vlm(torch, ctx),
                 phase_serve_stablelm(torch, ctx), phase_serve_audio(torch, ctx),
                 phase_serve_ssm(torch, ctx), phase_serve_hybrid(torch, ctx)]
     phase_examples(torch, ctx)
     families += [phase_train(torch, ctx, p) for p in TRAIN_PHASES]
     families += phase_mesh(torch, serve_outs, families)
     phase_roofline(torch)
+    emit({"phase": "provenance", "table": tuning["table"],
+          "measured_on": tuning["measured_on"],
+          "paths": provenance(serve_lookups, families)})
     print(card, flush=True)
     emit({"kernels": summarize(rows, launches, paths, features, families)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,7 +18,9 @@ package's ``tuned/``.
 
 ``sweep`` tunes problems and merges the winners into ``<hardware>.json``
 (``--fresh`` starts the file anew): ``--shapes`` lists them (``MxKxN``
-for gemm, ``SQxSKVxD`` for flash_attention, ``BxL`` for paged_attn);
+for gemm, B row-major, or ``MxKxNt``, B K-major as the models keep a
+transposed head; ``SQxSKVxD`` for flash_attention, ``BxL`` for
+paged_attn);
 ``--arch A`` collects A's serving problems on the card instead: A is built
 at full width in bf16 with flash prefill and seeded random weights, and
 serves the 12 seeded requests of ``chip_smoke.py``'s serve phase (8
@@ -88,17 +90,20 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _parse_shapes(text):
+def _parse_shapes(text, op):
     shapes = []
     for part in text.split(","):
+        part = part.lower()
+        kmajor = op == OP_GEMM and part.endswith("t")
         try:
-            dims = tuple(int(x) for x in part.lower().split("x"))
+            dims = tuple(int(x) for x in
+                         (part[:-1] if kmajor else part).split("x"))
         except ValueError:
             dims = ()
         if len(dims) not in (2, 3):
             raise SystemExit(f"error: bad --shapes entry {part!r}; expected "
-                             f"MxKxN, SQxSKVxD or BxL")
-        shapes.append(dims)
+                             f"MxKxN[t], SQxSKVxD or BxL")
+        shapes.append(dims + (True,) if kmajor else dims)
     return shapes
 
 
@@ -160,7 +165,7 @@ def _library_us(op, problem, dtype):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
     if op == OP_GEMM:
-        m, k, n, kmajor, _ = problem
+        m, k, n, kmajor = (problem + (False,))[:4]
         a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
         b = torch.randn(n, k, generator=gen, device="cuda").to(dtype)
         b = b.t() if kmajor else b.t().contiguous()
@@ -238,7 +243,7 @@ def cmd_sweep(args) -> int:
                              " sweep paged_attn with --shapes")
     else:
         ops = (list(DEFAULT_SHAPES) if args.op == "all" else [args.op])
-        problems = {op: (_parse_shapes(args.shapes) if args.shapes
+        problems = {op: (_parse_shapes(args.shapes, op) if args.shapes
                          else DEFAULT_SHAPES[op]) for op in ops}
     path = _db_path(args)
     db = tuning_db.TuningDB(hw.name)

@@ -196,8 +196,9 @@ class TracedEngine(Engine):
 def serving(eng):
     """What ``Engine.run`` enters around a drain."""
     from repro_torch.core.gemm_api import execution_context
+    from repro_torch.distributed import ctx as dctx
     with torch.no_grad(), execution_context(hardware=eng.hardware), \
-            eng._on_mesh():
+            dctx.on_mesh(eng.mesh, eng.rules):
         yield
 
 

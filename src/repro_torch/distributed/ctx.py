@@ -87,6 +87,14 @@ def activation_policy(mesh, rules):
         set_policy(old)
 
 
+def on_mesh(mesh, rules):
+    """:func:`activation_policy` on ``mesh``; nothing with no mesh (one
+    device)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return activation_policy(mesh, rules)
+
+
 def set_mesh(mesh, rules=None):
     _TLS.mesh = mesh
     _TLS.rules = rules

@@ -349,6 +349,29 @@ def cache_shardings(mesh, rules: ShardingRules, cache):
     return map_tree(lambda p, _x: Layout.of(mesh, specs[p]), cache)
 
 
+def place_batch(mesh, rules: ShardingRules, tree):
+    """Put the host-made (B, ...) inputs of a model call (the same on every
+    rank) on ``mesh``, batch split over the data axes; a no-op with no
+    mesh.  ``tree`` is a tensor or a dict, tuple or list of them; None
+    leaves stay None."""
+    if mesh is None or tree is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: place_batch(mesh, rules, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(place_batch(mesh, rules, v) for v in tree)
+    return distribute(tree, mesh, placements_for(
+        mesh, batch_spec(mesh, rules, tree.shape[0], tree.dim())))
+
+
+def place_cache(mesh, rules: ShardingRules, cache):
+    """A cache tree placed by :func:`cache_shardings` (a no-op with no
+    mesh)."""
+    if mesh is None:
+        return cache
+    return distribute_tree(cache, cache_shardings(mesh, rules, cache))
+
+
 def full(t):
     """A DTensor's whole value on every rank (a plain tensor as it is)."""
     return t.full_tensor() if isinstance(t, DTensor) else t

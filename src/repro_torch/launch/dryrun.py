@@ -109,8 +109,7 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
         return tree if mesh is None else sh.distribute_tree(
             tree, layouts(mesh, rules, tree))
 
-    policy = (contextlib.nullcontext() if mesh is None
-              else dctx.activation_policy(mesh, rules))
+    policy = dctx.on_mesh(mesh, rules)
     # real tensors the model keeps (none today) would meet fake ones here
     mode = (FakeTensorMode(allow_non_fake_inputs=True) if fake
             else contextlib.nullcontext())

@@ -3,5 +3,7 @@ from repro_torch.serve.api import (  # noqa: F401
     RequestHandle, StreamEvent,
 )
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: F401
-from repro_torch.serve.reference import generate_per_prompt  # noqa: F401
+from repro_torch.serve.reference import (  # noqa: F401
+    PerTokenSyncEngine, generate_per_prompt, generate_per_token_sync,
+)
 from repro_torch.serve.server import Server  # noqa: F401

@@ -79,7 +79,6 @@ with two schedulers sharing one model path.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional
@@ -350,7 +349,8 @@ class Engine:
         local shapes, and the lookup is keyed by them: each entry carries
         its ``local_shape``, and a global (K, N) that weights split two
         ways is keyed ``global->local`` for each."""
-        tokens, kv_start = self._place((tokens, kv_start))
+        tokens, kv_start = sh.place_batch(self.mesh, self.rules,
+                                          (tokens, kv_start))
         if self._tile_lookups is not None:
             logits, cache = self.model.decode_step(self.params, tokens, cache,
                                                    offset, kv_start)
@@ -383,29 +383,6 @@ class Engine:
         return sh.full(logits), cache
 
     # -- the mesh ---------------------------------------------------------
-    def _place(self, tree):
-        """Put the host-made (B, ...) inputs of a model call (the same on
-        every rank) on the mesh, batch split over the data axes; a no-op
-        with no mesh.  None leaves stay None."""
-        if self.mesh is None:
-            return tree
-        if isinstance(tree, dict):
-            return {k: self._place(v) for k, v in tree.items()}
-        if isinstance(tree, (tuple, list)):
-            return type(tree)(self._place(v) for v in tree)
-        if tree is None:
-            return None
-        return sh.distribute(tree, self.mesh, sh.placements_for(
-            self.mesh, sh.batch_spec(self.mesh, self.rules, tree.shape[0],
-                                     tree.dim())))
-
-    def _place_cache(self, cache):
-        """A cache tree placed by ``cache_shardings`` (no-op, no mesh)."""
-        if self.mesh is None:
-            return cache
-        return sh.distribute_tree(cache, sh.cache_shardings(
-            self.mesh, self.rules, cache))
-
     def _gather_pool(self, pool, gidx):
         """``paged_gather``; on a mesh each rank gathers its batch rows of
         its pool block, laid out as ``cache_shardings`` lays a dense
@@ -465,8 +442,8 @@ class Engine:
         makes the fixed leaves, the cross K/V and the SSM states, anew)."""
         cache = self.model.init_cache(self.cfg.max_batch, max_len,
                                       device=self.device)
-        return self._place_cache({k: v for k, v in cache.items()
-                                  if k == "self"})
+        return sh.place_cache(self.mesh, self.rules,
+                              {k: v for k, v in cache.items() if k == "self"})
 
     def _ensure_cache(self):
         """One dense ``init_cache(max_batch, max_len)`` per engine, reused by
@@ -498,7 +475,8 @@ class Engine:
             torch.zeros(leaf.shape[:-4] + (npp,) + leaf.shape[-2:],
                         dtype=leaf.dtype, device=self.device)
             for leaf in template["self"])
-        self._fixed = self._place_cache(
+        self._fixed = sh.place_cache(
+            self.mesh, self.rules,
             {k: v for k, v in template.items() if k != "self"})
         if self.mesh is not None:
             # no batch dim: KV heads on the tensor axis where they divide
@@ -626,7 +604,7 @@ class Engine:
         # no_grad and the execution context are thread-local: entered here,
         # they cover a Server's worker
         with torch.no_grad(), execution_context(hardware=self.hardware), \
-                self._on_mesh():
+                dctx.on_mesh(self.mesh, self.rules):
             if self._scheduler == "continuous":
                 drained = self._run_continuous(extra_inputs)
             else:
@@ -639,13 +617,6 @@ class Engine:
                     self._run_wave(wave, extra_inputs)
                     drained.extend(wave)
         return [r.result for r in sorted(drained, key=lambda r: r.rid)]
-
-    def _on_mesh(self):
-        """The model calls' activation policy on the mesh (nothing
-        without one)."""
-        if self.mesh is None:
-            return contextlib.nullcontext()
-        return dctx.activation_policy(self.mesh, self.rules)
 
     def _poll_ingest(self) -> None:
         """Pull server-mode requests in at a scheduling boundary (no-op
@@ -812,8 +783,9 @@ class Engine:
     def _prefill_wave(self, batch, cache):
         """The wave's prefill: (the last position's (B, V) logits, cache)."""
         with annotate("serve.prefill_wave"):
-            logits0, cache = self.model.prefill(self.params,
-                                                self._place(batch), cache)
+            logits0, cache = self.model.prefill(
+                self.params, sh.place_batch(self.mesh, self.rules, batch),
+                cache)
             logits0 = sh.full(logits0)
             self._sync_if_profiling()
         return logits0, cache
@@ -994,8 +966,9 @@ class Engine:
         self._record_prefill_flash_tiles(plen)
         t0 = time.perf_counter()
         with annotate("serve.prefill_admit"):
-            logits0, filled = self.model.prefill(self.params,
-                                                 self._place(batch), scratch)
+            logits0, filled = self.model.prefill(
+                self.params, sh.place_batch(self.mesh, self.rules, batch),
+                scratch)
             logits0 = sh.full(logits0)
             dest_t = torch.from_numpy(dest)
             for pool, src in zip(self._pools, filled["self"]):

@@ -11,7 +11,6 @@ family trains; a vlm or audio batch carries its extra inputs
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, NamedTuple, Optional
@@ -235,7 +234,7 @@ class Trainer:
         for step_idx in range(start_step, self.cfg.total_steps):
             batch = self.data_iter(step_idx)
             t0 = time.perf_counter()
-            with annotate("train.step"), self._on_mesh():
+            with annotate("train.step"), dctx.on_mesh(self.mesh, self.rules):
                 if self.mesh is not None:
                     batch = sh.distribute_tree(batch, sh.batch_shardings(
                         self.mesh, self.rules, batch))
@@ -261,9 +260,3 @@ class Trainer:
         losses = (torch.stack([sh.full(x) for x in logged_losses]).cpu()
                   .tolist() if logged_losses else [])
         return state, list(zip(logged_steps, losses))
-
-    def _on_mesh(self):
-        """The step's activation policy on the mesh (nothing without)."""
-        if self.mesh is None:
-            return contextlib.nullcontext()
-        return dctx.activation_policy(self.mesh, self.rules)

@@ -606,7 +606,7 @@ def test_cli_exits_1_on_a_new_finding(tmp_path):
     assert "leak.py:2: TP001" in proc.stdout
     proc = _cli(["pragmas"], cwd=str(tmp_path),
                 pythonpath=str(tmp_path / "src"))
-    assert proc.returncode == 0 and "7 live, 0 stale" in proc.stdout
+    assert proc.returncode == 0 and "9 live, 0 stale" in proc.stdout
 
 
 @pytest.mark.parametrize("args", [["ir", "--bogus"], ["lint", "--bogus"], []])

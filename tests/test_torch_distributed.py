@@ -323,7 +323,7 @@ _REFERENCE = textwrap.dedent("""
     from repro.launch.mesh import build_mesh
     from repro.models import build_model
     from repro.optim import AdamW
-    from repro.serve import Engine, ServeConfig
+    from repro.serve import Engine, PerTokenSyncEngine, ServeConfig
     from repro.train import init_train_state, lm_loss, make_train_step
     from repro.train.trainer import state_shardings
 
@@ -350,6 +350,14 @@ _REFERENCE = textwrap.dedent("""
             wave = Engine(model, params, ServeConfig(
                 max_batch=8, max_len=64, mesh=mesh, scheduler="wave"))
             r["wave"] = wave.generate(PROMPTS, 5)
+            # the per-token-sync baseline, plain and on the mesh (uniform
+            # lengths: test_engine_mesh.py's sync traffic)
+            sync = [[(5 * i + j) % cfg.vocab_size for j in range(8)]
+                    for i in range(8)]
+            r["sync"] = PerTokenSyncEngine(model, params,
+                                           max_len=64).generate(sync, 5)
+            r["sync_mesh"] = PerTokenSyncEngine(
+                model, params, max_len=64, mesh=mesh).generate(sync, 5)
         res[arch] = r
     for arch in TRAIN_ARCHS:
         jm = build_model(ARCHITECTURES[arch].reduced())
@@ -406,8 +414,10 @@ _PORT = textwrap.dedent("""
     from repro_torch.models import build_model, params_from_numpy
     from repro_torch.models.params import train_state_from_numpy, tree_paths
     from repro_torch.optim import AdamW
-    from repro_torch.serve import Engine, Request, ServeConfig, Server
+    from repro_torch.serve import (Engine, PerTokenSyncEngine, Request,
+                                   ServeConfig, Server)
     from repro_torch.serve.server import follow
+    from torch.distributed.tensor import DTensor
     from repro_torch.train.trainer import (_value_and_grad, make_train_step,
                                            place_state, state_shardings)
 
@@ -449,6 +459,16 @@ _PORT = textwrap.dedent("""
                 max_batch=8, max_len=64, device="cpu", mesh=mesh,
                 scheduler="wave"))
             r["wave"] = wave.generate(PROMPTS, 5)
+            sync = [[(5 * i + j) % model.cfg.vocab_size for j in range(8)]
+                    for i in range(8)]
+            r["sync"] = PerTokenSyncEngine(model, params,
+                                           max_len=64).generate(sync, 5)
+            meshed = PerTokenSyncEngine(model, params, max_len=64, mesh=mesh)
+            r["sync_mesh"] = meshed.generate(sync, 5)
+            r["sync_sharded"] = any(
+                isinstance(t, DTensor) and not all(
+                    pl.is_replicate() for pl in t.placements)
+                for t in tree_paths(meshed.params).values())
             st = wave.stats()
             mine[arch + ":wave"] = {{k: st[k] for k in (
                 "device_transfers", "chunks", "waves")}}
@@ -644,6 +664,15 @@ def test_mesh_serve_tokens_equal_the_references_mesh(runs, arch):
 def test_mesh_continuous_equals_wave_and_the_reference(runs):
     r, p = runs.ref["llama3.2-1b"], runs.port["llama3.2-1b"]
     assert p["wave"] == p["tokens"] == r["wave"]
+
+
+def test_per_token_sync_on_the_mesh_equals_plain_and_the_reference(runs):
+    """The sync baseline on data=4,model=2 shards its params and stays pure
+    layout: the same tokens on and off the mesh, in both packages
+    (``tests/test_engine_mesh.py:261-285``)."""
+    r, p = runs.ref["llama3.2-1b"], runs.port["llama3.2-1b"]
+    assert p["sync_mesh"] == p["sync"] == r["sync_mesh"] == r["sync"]
+    assert p["sync_sharded"]
 
 
 def test_server_on_rank_zero_with_followers_serves_the_same_tokens(runs):

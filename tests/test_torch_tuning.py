@@ -843,6 +843,25 @@ def test_launcher_tuned_dir_replaces_the_package_table(flag, tmp_path,
         assert mine_res.source == "default"
 
 
+def test_cli_sweep_takes_a_k_major_gemm_shape(tmp_path):
+    """``--shapes MxKxNt`` sweeps a GEMM with B K-major; the suffix is a
+    GEMM's only."""
+    tune = str(REPO / "scripts" / "torch_tune.py")
+    out = _run([tune, "sweep", "--hardware", "h100", "--mode", "model",
+                "--op", "gemm", "--dtype", "float32",
+                "--shapes", "64x256x128t,64x256x128",
+                "--db-dir", str(tmp_path)], tmp_path)
+    assert out.returncode == 0, out.stderr
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    assert [(ln["shape"], ln["kmajor"]) for ln in lines] == [
+        ([64, 256, 128], True), ([64, 256, 128], False)]
+    out = _run([tune, "sweep", "--hardware", "h100", "--mode", "model",
+                "--op", "flash_attention", "--shapes", "128x128x64t",
+                "--db-dir", str(tmp_path)], tmp_path)
+    assert out.returncode != 0 and "bad --shapes entry" in out.stderr
+
+
 def test_cli_sweep_show_export_verify(tmp_path):
     tune = str(REPO / "scripts" / "torch_tune.py")
     out = _run([tune, "sweep", "--hardware", "h100", "--mode", "model",
