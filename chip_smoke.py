@@ -1285,7 +1285,7 @@ def phase_serve(torch):
                for n in lens]
     max_new = 32
     eng = Engine(model, params, ServeConfig(max_batch=8, max_len=1024,
-                                            decode_chunk=8, profile=True))
+                                            decode_chunk=8))
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new)
@@ -1472,7 +1472,7 @@ def phase_serve_sync(torch, ctx):
                for i in range(SYNC_BATCH)]
     sync = PerTokenSyncEngine(model, params, max_len=256, profile=True)
     fused = Engine(model, params, ServeConfig(
-        max_batch=SYNC_BATCH, max_len=256, profile=True, scheduler="wave"))
+        max_batch=SYNC_BATCH, max_len=256, scheduler="wave"))
     kernels.reset_launch_counts()
     sync_outs = sync.generate(prompts, SYNC_NEW)
     torch.cuda.synchronize()
@@ -1754,7 +1754,7 @@ def phase_serve_features(torch, ctx):
     out = {"phase": "serve_features", "card": torch.cuda.get_device_name(0)}
 
     def serve_cfg(**kw):
-        base = dict(max_batch=8, max_len=1024, decode_chunk=8, profile=True)
+        base = dict(max_batch=8, max_len=1024, decode_chunk=8)
         base.update(kw)
         return ServeConfig(**base)
 
@@ -2117,7 +2117,7 @@ def serve_runs(torch, out, model, params, prompts, cold, warm, extra=None):
         res, toks = {}, []
         for rep in range(2):
             eng = Engine(model, params, ServeConfig(
-                max_batch=8, max_len=1024, decode_chunk=8, profile=True, **kw))
+                max_batch=8, max_len=1024, decode_chunk=8, **kw))
             kernels.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2313,7 +2313,7 @@ def phase_serve_stablelm(torch, ctx):
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
                for n in lens]
     eng = Engine(model, params, ServeConfig(max_batch=8, max_len=1024,
-                                            decode_chunk=8, profile=True))
+                                            decode_chunk=8))
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     outs = eng.generate(prompts, 8)
@@ -3371,7 +3371,7 @@ def phase_mesh(torch, serve_outs, families):
         prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
                    for n in lens]
         max_new = 32
-        scfg = dict(max_batch=8, max_len=1024, decode_chunk=8, profile=True)
+        scfg = dict(max_batch=8, max_len=1024, decode_chunk=8)
         engines = {"plain": Engine(model, params, ServeConfig(**scfg)),
                    "mesh": Engine(model, params, ServeConfig(**scfg,
                                                              mesh=mesh))}

@@ -167,7 +167,7 @@ def cmd_serve(args) -> None:
                for i in range(args.batch)]
     extra = _extras(torch, model, args.batch, 0, device) or None
     eng = Engine(model, params, ServeConfig(
-        max_batch=args.batch, max_len=args.max_len, profile=True,
+        max_batch=args.batch, max_len=args.max_len,
         hardware=hardware, device=device, mesh=mesh))
     print("[profile] warmup (kernel builds, allocator; outside the trace)...")
     eng.generate(prompts, args.max_new, extra_inputs=extra)

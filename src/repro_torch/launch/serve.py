@@ -138,7 +138,7 @@ def _main(argv=None) -> None:
                for p in args.prompts.split(";")]
     eng = Engine(model, params, ServeConfig(
         max_batch=args.max_batch or len(prompts),
-        temperature=args.temperature, profile=args.stats,
+        temperature=args.temperature,
         scheduler=args.scheduler, page_size=args.page_size,
         capacity_tokens=args.capacity_tokens, decode_chunk=args.decode_chunk,
         prefix_cache=not args.no_prefix_cache, device=args.device,

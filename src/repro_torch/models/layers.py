@@ -20,6 +20,7 @@ from repro_torch.core import einsum, matmul
 from repro_torch.distributed import ops as dops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.params import ParamSpec
+from repro_torch.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -266,40 +267,42 @@ def attention(
         q = apply_rope(q, positions, theta=rope_theta, fraction=rope_fraction)
         k = apply_rope(k, positions, theta=rope_theta, fraction=rope_fraction)
 
-    new_cache = None
-    kv_len = None
-    q_offset = 0
-    if kv_cache is not None:
-        ck, cv = kv_cache
-        off = int(cache_offset)
-        if isinstance(ck, dict):   # int8-quantized cache: {"q": i8, "s": f32}
-            for leaf, x_new in ((ck, k), (cv, v)):
-                xq, xs = kv_quantize(x_new)
-                _write_columns(leaf["q"], off, xq)
-                _write_columns(leaf["s"], off, xs)
-            k = kv_dequantize(ck["q"], ck["s"], k.dtype)
-            v = kv_dequantize(cv["q"], cv["s"], v.dtype)
+    # the attention core, from the cache write to the output projection
+    with annotate("model.attn"):
+        new_cache = None
+        kv_len = None
+        q_offset = 0
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            off = int(cache_offset)
+            if isinstance(ck, dict):   # int8 cache: {"q": i8, "s": f32}
+                for leaf, x_new in ((ck, k), (cv, v)):
+                    xq, xs = kv_quantize(x_new)
+                    _write_columns(leaf["q"], off, xq)
+                    _write_columns(leaf["s"], off, xs)
+                k = kv_dequantize(ck["q"], ck["s"], k.dtype)
+                v = kv_dequantize(cv["q"], cv["s"], v.dtype)
+            else:
+                _write_columns(ck, off, k.to(ck.dtype))
+                _write_columns(cv, off, v.to(cv.dtype))
+                k, v = ck, cv
+            q_offset = off
+            kv_len = off + s
+            new_cache = (ck, cv)
+
+        if use_flash:
+            # With a cache the routing guarantees offset 0 (prefill): attend
+            # over exactly the s columns just written, read back from the
+            # cache (for an int8 cache, dequantized, as the chunked path
+            # reads them).
+            from repro_torch.core import flash_attention
+            kf, vf = (k[:, :s], v[:, :s]) if kv_cache is not None else (k, v)
+            out = flash_attention(q, kf, vf, causal=causal, kv_start=kv_start)
         else:
-            _write_columns(ck, off, k.to(ck.dtype))
-            _write_columns(cv, off, v.to(cv.dtype))
-            k, v = ck, cv
-        q_offset = off
-        kv_len = off + s
-        new_cache = (ck, cv)
-
-    if use_flash:
-        # With a cache the routing guarantees offset 0 (prefill): attend
-        # over exactly the s columns just written, read back from the cache
-        # (for an int8 cache, dequantized, as the chunked path reads them).
-        from repro_torch.core import flash_attention
-        kf, vf = (k[:, :s], v[:, :s]) if kv_cache is not None else (k, v)
-        out = flash_attention(q, kf, vf, causal=causal, kv_start=kv_start)
-        return matmul(out.reshape(b, s, h * hd), params["wo"]), new_cache
-
-    qg = dops.unflatten(q, 2, (kvh, dims.group))
-    out = _sdpa_chunked(qg, k, v, causal=causal, q_offset=q_offset,
-                        kv_len=kv_len, chunk=q_chunk, p_dtype=p_dtype,
-                        kv_start=kv_start)
+            qg = dops.unflatten(q, 2, (kvh, dims.group))
+            out = _sdpa_chunked(qg, k, v, causal=causal, q_offset=q_offset,
+                                kv_len=kv_len, chunk=q_chunk, p_dtype=p_dtype,
+                                kv_start=kv_start)
     return matmul(out.reshape(b, s, h * hd), params["wo"]), new_cache
 
 

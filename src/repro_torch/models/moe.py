@@ -11,6 +11,11 @@ The dispatch buffer is expert-major, (E, B, C, D): the same B x E x C slots
 as the reference's (B, E, C, D), laid out so that each expert's slots of
 every group form one (B*C, D) operand of the batched product with the
 (E, D, F) weight stack, and neither is copied for it.
+
+Each layer is traced in four spans (``model.moe.route``, ``.dispatch``,
+``.experts``, ``.combine``), and counts on the host, from shapes, the
+routed choices and the expert buffer rows it computes
+(:func:`moe_counts`).
 """
 from __future__ import annotations
 
@@ -26,6 +31,11 @@ from repro_torch.core import einsum, matmul
 from repro_torch.distributed import ops as dops
 from repro_torch.distributed.ctx import constrain
 from repro_torch.models.params import ParamSpec
+from repro_torch.profiling import annotate
+
+#: process-wide, from shapes: the (token, choice) pairs routed and the
+#: rows of the expert buffers they were routed into, padding included
+_COUNTS = {"routed": 0, "expert_rows": 0}
 
 
 def moe_template(d_model: int, d_ff: int, num_experts: int):
@@ -36,6 +46,13 @@ def moe_template(d_model: int, d_ff: int, num_experts: int):
         "w_up": ParamSpec((e, d_model, d_ff), ("expert", "embed", "ff")),
         "w_down": ParamSpec((e, d_ff, d_model), ("expert", "ff", "embed")),
     }
+
+
+def moe_counts() -> dict:
+    """The MoE layers' counts so far (process-wide, like
+    ``kernels.launch_counts()``): ``routed`` choices (B*S*K a layer call)
+    and ``expert_rows`` (E*B*C): their ratio is the buffers' fill."""
+    return dict(_COUNTS)
 
 
 def capacity(seq_len: int, num_experts: int, top_k: int, cf: float) -> int:
@@ -66,29 +83,32 @@ def _route_group(x: torch.Tensor, logits: torch.Tensor, *, top_k: int,
     that expert's buffer (uncapped), whether it fits, and its renormalised
     top-k probability (f32)."""
     b, s, d = x.shape
-    probs = _softmax(logits)
-    # lax.top_k's order: larger first, the lower expert among equal values
-    # (bf16 logits tie often).  torch.topk does not promise that order.
-    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, idx = gate[..., :top_k], idx[..., :top_k]
-    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    with annotate("model.moe.route"):
+        probs = _softmax(logits)
+        # lax.top_k's order: larger first, the lower expert among equal
+        # values (bf16 logits tie often).  torch.topk does not promise it.
+        gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate, idx = gate[..., :top_k], idx[..., :top_k]
+        gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
 
-    # position within the expert's buffer: running count over (token, choice)
-    flat = F.one_hot(idx, num_experts).to(torch.int32).reshape(
-        b, s * top_k, num_experts)
-    pos = torch.cumsum(flat, dim=1, dtype=torch.int32) * flat - flat
-    slot_pos = pos.sum(-1, dtype=torch.int32)
-    slot_exp = idx.reshape(b, s * top_k)
-    keep = slot_pos < cap
+        # position within the expert's buffer: running count over (token,
+        # choice)
+        flat = F.one_hot(idx, num_experts).to(torch.int32).reshape(
+            b, s * top_k, num_experts)
+        pos = torch.cumsum(flat, dim=1, dtype=torch.int32) * flat - flat
+        slot_pos = pos.sum(-1, dtype=torch.int32)
+        slot_exp = idx.reshape(b, s * top_k)
+        keep = slot_pos < cap
 
-    # Slot (e, g, p) is row (e * B + g) * C + p of the flat buffer; a dropped
-    # choice goes to one extra last row, which is cut off (the reference's
-    # scatter with mode="drop").
-    rows = (slot_exp * b + _group_rows(b, x.device)) * cap + slot_pos
-    rows = torch.where(keep, rows, num_experts * b * cap)
-    buf = x.new_zeros((num_experts * b * cap + 1, d))
-    buf.index_add_(0, rows.reshape(-1),
-                   x.repeat_interleave(top_k, dim=1).reshape(-1, d))
+        # Slot (e, g, p) is row (e * B + g) * C + p of the flat buffer; a
+        # dropped choice goes to one extra last row, which is cut off (the
+        # reference's scatter with mode="drop").
+        rows = (slot_exp * b + _group_rows(b, x.device)) * cap + slot_pos
+        rows = torch.where(keep, rows, num_experts * b * cap)
+    with annotate("model.moe.dispatch"):
+        buf = x.new_zeros((num_experts * b * cap + 1, d))
+        buf.index_add_(0, rows.reshape(-1),
+                       x.repeat_interleave(top_k, dim=1).reshape(-1, d))
     route = (slot_exp, slot_pos, keep, gate.reshape(b, s * top_k))
     return buf[:-1].view(num_experts, b, cap, d), route
 
@@ -127,7 +147,10 @@ def moe_layer(params, x: torch.Tensor, *, top_k: int, num_experts: int,
     serving steps discard it, as the reference's compiled steps drop it."""
     b, s, d = x.shape
     cap = capacity(s, num_experts, top_k, capacity_factor)
-    logits = matmul(x, params["router"])                         # (B, S, E)
+    _COUNTS["routed"] += b * s * top_k
+    _COUNTS["expert_rows"] += num_experts * b * cap
+    with annotate("model.moe.route"):
+        logits = matmul(x, params["router"])                     # (B, S, E)
     route_fn = functools.partial(_route_group, top_k=top_k,
                                  num_experts=num_experts, cap=cap)
     combine_fn = functools.partial(_combine_group, s=s, top_k=top_k, cap=cap,
@@ -140,20 +163,23 @@ def moe_layer(params, x: torch.Tensor, *, top_k: int, num_experts: int,
         # view of the expert-major buffer)
         buf, route = dops.batch_local(route_fn, [x, logits], [0, 0],
                                       (1, (0, 0, 0, 0)))
-        buf = _dispatch(buf)
+        with annotate("model.moe.dispatch"):
+            buf = _dispatch(buf)
     else:
         buf, route = route_fn(x, logits)
 
     # Expert FFN: products over the expert axis, f32 results.
-    h = F.silu(einsum("ebcd,edf->ebcf", buf, params["w_gate"]))
-    h = h * einsum("ebcd,edf->ebcf", buf, params["w_up"])
-    out_e = einsum("ebcf,efd->ebcd", h.to(x.dtype), params["w_down"])
-    if sharded:
-        out = constrain(dops.batch_local(combine_fn, [_dispatch(out_e),
-                                                      *route],
-                                         [1, 0, 0, 0, 0], 0), "hidden")
-    else:
-        out = combine_fn(out_e, *route)
+    with annotate("model.moe.experts"):
+        h = F.silu(einsum("ebcd,edf->ebcf", buf, params["w_gate"]))
+        h = h * einsum("ebcd,edf->ebcf", buf, params["w_up"])
+        out_e = einsum("ebcf,efd->ebcd", h.to(x.dtype), params["w_down"])
+    with annotate("model.moe.combine"):
+        if sharded:
+            out = constrain(dops.batch_local(combine_fn, [_dispatch(out_e),
+                                                          *route],
+                                             [1, 0, 0, 0, 0], 0), "hidden")
+        else:
+            out = combine_fn(out_e, *route)
     if not with_aux:
         return out, None
 

@@ -5,8 +5,9 @@ The port's counterpart of the reference's ``profiling`` package, over
 
 * :mod:`repro_torch.profiling.tracer` — ``trace(...)`` (a
   ``torch.profiler`` capture scoped to a context manager, strict no-op when
-  disabled) and ``annotate(...)`` (the named markers the serve engine and
-  the trainer put around their waves, chunks and steps);
+  disabled), ``annotate(...)`` (the named spans the serve engine, the
+  trainer and the model's layers put around their hot paths) and
+  ``count(...)`` (host-side counts recorded beside them);
 * :mod:`repro_torch.profiling.breakdown` — a stdlib-only reader of the
   Chrome trace ``torch.profiler`` writes, rolling device time up into op
   families (collective, GEMM, attention, host transfer, other), counting
@@ -21,10 +22,11 @@ from repro_torch.profiling.breakdown import (FAMILIES, PROFILE_SCHEMA_VERSION,
                                              load_trace_events,
                                              summarize_events,
                                              validate_profile)
-from repro_torch.profiling.tracer import TraceSession, annotate, trace
+from repro_torch.profiling.tracer import (TraceSession, annotate, count,
+                                          parse_count, trace)
 
 __all__ = [
-    "trace", "annotate", "TraceSession",
+    "trace", "annotate", "count", "parse_count", "TraceSession",
     "load_trace_events", "summarize_events", "build_profile",
     "validate_profile", "classify_event_name",
     "FAMILIES", "PROFILE_SCHEMA_VERSION",

@@ -10,11 +10,14 @@ stay in the serve and train launchers at no cost.  A capture on the card
 that holds no device event is an error, raised when the block ends: a
 breakdown of host ops alone would pass for the card's.
 
-``annotate(name)`` is the marker the engine and trainer put around their
-hot paths: a ``torch.profiler.record_function`` range (a host-side
-``user_annotation`` event, how the breakdown attributes wall time to e.g.
-``serve.decode_chunk``), plus an NVTX range on the card.  Both are near
-free when no trace is active, so annotations are unconditional.
+``annotate(name)`` is the span the engine, the trainer and the model's
+layers put around their hot paths: a ``torch.profiler.record_function``
+range (a host-side ``user_annotation`` event, to which a trace's reader
+attributes the kernels launched inside it, e.g. ``serve.decode_chunk``).
+``count(name, **values)`` records host-side counts beside the spans: a
+zero-length range named ``"<name> k1=v1 k2=v2"`` (a range's own arguments
+never reach the Chrome trace).  While no profiler runs on the calling
+thread both cost one check and enter nothing, so they are unconditional.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -100,13 +103,38 @@ def trace(out_dir: Optional[str] = None, *,
             "profiler did not trace the card")
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Mark a code region in the trace timeline (and, on the card, as an
-    NVTX range)."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+#: what :func:`annotate` returns while no profiler runs (reentrant)
+_OFF = contextlib.nullcontext()
+
+
+def _profiling() -> bool:
+    """A ``torch.profiler`` session records this thread's ranges."""
+    return torch.autograd._profiler_enabled()
+
+
+def annotate(name: str):
+    """Mark a code region in the trace timeline: a context manager that
+    enters a ``record_function`` range while a profiler runs, and nothing
+    otherwise."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count_label(name: str, values: Dict[str, int]) -> str:
+    """``"<name> k1=v1 k2=v2"``: the range name :func:`count` records."""
+    return " ".join([name] + [f"{k}={int(v)}" for k, v in values.items()])
+
+
+def parse_count(label: str) -> Tuple[str, Dict[str, int]]:
+    """Inverse of :func:`count_label`: ``(name, {key: int})``."""
+    name, *pairs = label.split(" ")
+    return name, {k: int(v) for k, v in (p.split("=", 1) for p in pairs)}
+
+
+def count(name: str, **values: int) -> None:
+    """Record integer counts in the trace, while a profiler runs: a
+    zero-length range named :func:`count_label` ``(name, values)``."""
+    if _profiling():
+        with torch.profiler.record_function(count_label(name, values)):
+            pass

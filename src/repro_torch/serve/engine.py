@@ -76,12 +76,22 @@ with two schedulers sharing one model path.
   prefix cache is skipped while extras are given.  Every cache leaf keeps
   its leading dims (L, or U and P-1, or U) and is indexed from the end:
   batch at -4 (the conv window's at -3), tokens at -3.
+* **Telemetry** — ``stats()`` counts the admissions' real and computed
+  prompt tokens, the chunks' live and computed row-steps, the MoE layers'
+  routed choices and expert buffer rows, and each admitted request's
+  queue wait, all on the host; ``prefill_seconds`` / ``decode_seconds``
+  are the device's time (CUDA events, read after the chunk's or wave's
+  host copy; the host clock on the CPU).  Under a profiler the engine's
+  host work is traced as ``serve.schedule``, a chunk's KV copies as
+  ``serve.kv_gather`` / ``serve.kv_scatter``, and each admission prefill
+  and decode chunk is followed by a ``serve.counts.admit`` /
+  ``serve.counts.chunk`` count of what it did.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,7 +110,8 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.paged import paged_copy, paged_gather, paged_scatter
 from repro_torch.launch.mesh import build_mesh, describe_mesh
 from repro_torch.models.model import Model
-from repro_torch.profiling import annotate
+from repro_torch.models.moe import moe_counts
+from repro_torch.profiling import annotate, count
 from repro_torch.serve import api, kv_pages
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.reference import greedy
@@ -134,6 +145,55 @@ def _bucket_len(n: int, cap: Optional[int] = None) -> int:
     return b
 
 
+class _RegionClock:
+    """Seconds of the engine's prefills and decodes as the device ran
+    them, with no sync of their own.  On the card, CUDA events on the
+    engine's stream: a region's end is recorded before the host copy that
+    follows it, and read (:meth:`read`) once that copy has returned.  On
+    the CPU, where each op runs as it is called, the host clock."""
+
+    def __init__(self, device: torch.device):
+        self._device = device if device.type == "cuda" else None
+        self._open: List[tuple] = []      # (key, start, end) not yet read
+
+    def _event(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self._device))
+        return ev
+
+    def start(self):
+        """Before a region's first launch."""
+        return time.perf_counter() if self._device is None else self._event()
+
+    def mark_end(self):
+        """A region's end, inside it, before its host copy (None on the
+        CPU, whose time is taken at :meth:`stop`)."""
+        return None if self._device is None else self._event()
+
+    def stop(self, stats: Dict[str, float], key: str, start,
+             end=None) -> None:
+        """After a region: its seconds go to ``stats[key]``, on the card
+        at the next :meth:`read`."""
+        if self._device is None:
+            stats[key] += time.perf_counter() - start
+        else:
+            self._open.append((key, start,
+                               self._event() if end is None else end))
+
+    def read(self, stats: Dict[str, float]) -> None:
+        """After a host copy that followed every region stopped so far."""
+        for key, start, end in self._open:
+            stats[key] += start.elapsed_time(end) * 1e-3
+        self._open.clear()
+
+
+def _moe_delta(before: Dict[str, int]) -> Dict[str, int]:
+    """The MoE counts taken since ``before`` (a ``moe_counts()``)."""
+    now = moe_counts()
+    return {"routed": now["routed"] - before["routed"],
+            "expert_rows": now["expert_rows"] - before["expert_rows"]}
+
+
 @dataclasses.dataclass
 class ServeConfig:
     max_batch: int = 8                # KV-cache slots
@@ -141,7 +201,6 @@ class ServeConfig:
     temperature: float = 0.0          # 0 => greedy
     eos_token: Optional[int] = None
     seed: int = 0                     # sampling seed, re-applied every run()
-    profile: bool = False             # synchronize after prefill to split timings
     # "continuous" (paged KV, admit/evict at chunk boundaries) or "wave".
     # int8-KV models run "wave" either way.
     scheduler: str = "continuous"
@@ -316,12 +375,18 @@ class Engine:
         self._plen_buckets: set = set()
         self._lat_ttft: List[float] = []
         self._lat_tok: List[float] = []
+        self._lat_wait: List[float] = []
+        self._clock = _RegionClock(self.device)
         self._stats: Dict[str, float] = {
             "requests": 0, "tokens_generated": 0, "generate_calls": 0,
             "waves": 0, "chunks": 0, "admission_prefills": 0,
             "device_transfers": 0, "cache_allocs": 0,
             "prefill_seconds": 0.0, "decode_seconds": 0.0,
             "total_seconds": 0.0,
+            "prefill_rows": 0, "prefill_prompt_tokens": 0,
+            "prefill_row_tokens": 0, "decode_live_row_steps": 0,
+            "decode_slot_steps": 0,
+            "moe_routed": 0, "moe_expert_rows": 0,
         }
 
     # -- tuning provenance ----------------------------------------------------
@@ -428,12 +493,6 @@ class Engine:
                        device=logits.device, dtype=torch.float32)
         g = -torch.log(-torch.log(u.clamp_(min=_TINY)))
         return torch.argmax(logits / t + g, dim=-1).to(torch.int32)
-
-    def _sync_if_profiling(self) -> None:
-        if self.cfg.profile and self.device.type == "cuda":
-            # deliberate sync: profile mode splits prefill / decode time
-            # analysis: allow(TP001)
-            torch.cuda.synchronize(self.device)
 
     # -- dense cache (wave) ---------------------------------------------------
     def _self_cache(self, max_len: int):
@@ -688,6 +747,12 @@ class Engine:
                                        finish_reason=reason))
         req.handle._set_result(req.result)
 
+    def _record_wait(self, wait: float) -> None:
+        """An admitted request's queue wait (submit to admission)."""
+        self._lat_wait.append(wait)
+        if len(self._lat_wait) > _LATENCY_WINDOW:
+            del self._lat_wait[:-_LATENCY_WINDOW]
+
     def _finish_reason(self, emitted: List[int]) -> Optional[str]:
         eos = self.cfg.eos_token
         return api.FINISH_STOP if eos is not None and eos in emitted else None
@@ -761,16 +826,16 @@ class Engine:
         cache = self._ensure_cache()
         self._plen_buckets.add(plen)
         self._record_prefill_flash_tiles(plen)
-        t0 = time.perf_counter()
+        t0 = self._clock.start()
         logits0, cache = self._prefill_wave(batch, cache)
-        t1 = time.perf_counter()
-        host = self._decode_loop(logits0, cache, kv_start, budget, plen,
-                                 width, need)
-        t2 = time.perf_counter()
+        self._clock.stop(self._stats, "prefill_seconds", t0)
+        t1 = self._clock.start()
+        host, end = self._decode_loop(logits0, cache, kv_start, budget, plen,
+                                      width, need)
+        self._clock.stop(self._stats, "decode_seconds", t1, end)
+        self._clock.read(self._stats)
         self._stats["device_transfers"] += 1
         self._stats["waves"] += 1
-        self._stats["prefill_seconds"] += t1 - t0
-        self._stats["decode_seconds"] += t2 - t1
         now = time.perf_counter()
         for r in wave:
             n = int(host[r.slot, width])
@@ -787,14 +852,14 @@ class Engine:
                 self.params, sh.place_batch(self.mesh, self.rules, batch),
                 cache)
             logits0 = sh.full(logits0)
-            self._sync_if_profiling()
         return logits0, cache
 
     def _decode_loop(self, logits0, cache, kv_start, budget, plen: int,
-                     width: int, need: int) -> np.ndarray:
+                     width: int, need: int) -> Tuple[np.ndarray, object]:
         """The wave's ``need`` decode steps from the prefill's logits, the
         tokens into a (B, width) buffer.  Returns its host copy with each
-        row's count in the last column: the wave's one transfer."""
+        row's count in the last column (the wave's one transfer), and the
+        device's end of the steps (``_RegionClock.mark_end``)."""
         b = self.cfg.max_batch
         with annotate("serve.decode_wave"):
             cur = self._sample(logits0)
@@ -819,10 +884,11 @@ class Engine:
                                                       offset, kv_start)
                     cur = self._sample(logits)
                     offset += 1
+            end = self._clock.mark_end()
             # The ONE device-to-host transfer of this wave.
             # analysis: allow(TP001)
             host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
-        return host
+        return host, end
 
     # -- continuous drain: admit/evict at chunk boundaries ----------------------
     def _run_continuous(self, extra_inputs=None) -> List[_Request]:
@@ -836,19 +902,20 @@ class Engine:
                     break
                 if self._queue:
                     self._admit_batch(active, extra_inputs)
-                preempted = self._csched.ensure_chunk_pages(self._chunk)
-                # Requeue victims at the queue front, smallest rid first,
-                # with their tokens discarded: greedy decode makes the
-                # restart exact.
-                for row in sorted(preempted, key=lambda r: r.rid,
-                                  reverse=True):
-                    req = active.pop(row.slot)
-                    self._sched.evict(req)
-                    req.tokens = None
-                    req.t_first = None
-                    req.prefix_hit = None
-                    req.cached_prefix_tokens = 0
-                    self._queue.insert(0, req)
+                with annotate("serve.schedule"):
+                    preempted = self._csched.ensure_chunk_pages(self._chunk)
+                    # Requeue victims at the queue front, smallest rid
+                    # first, with their tokens discarded: greedy decode
+                    # makes the restart exact.
+                    for row in sorted(preempted, key=lambda r: r.rid,
+                                      reverse=True):
+                        req = active.pop(row.slot)
+                        self._sched.evict(req)
+                        req.tokens = None
+                        req.t_first = None
+                        req.prefix_hit = None
+                        req.cached_prefix_tokens = 0
+                        self._queue.insert(0, req)
                 if not active:
                     continue        # preemption freed the pool; re-admit
                 buf_h, lens_h = self._run_chunk()
@@ -906,65 +973,73 @@ class Engine:
         admitted: List[_Request] = []
         hits = []                       # (req, RowState, cache entry)
         caching = self._prefix is not None and not extra_inputs
-        while self._queue:
-            nxt = self._queue[0]
-            m = self._prefix.match(nxt.prompt) if caching else None
-            shared = list(m.pages) if m is not None else []
-            if not self._csched.can_admit(len(nxt.prompt),
-                                          shared_pages=len(shared)):
-                if (self._csched.free_slots > 0 and caching
-                        and self._prefix.evict_one()):
-                    continue
-                break
-            req = self._queue.pop(0)
-            row = self._csched.admit(req.rid, len(req.prompt), req.max_new,
-                                     shared_pages=shared)
-            self._sched.admit(req)      # lockstep: same smallest free slot
-            assert req.slot == row.slot
-            req.tokens = []
-            active[row.slot] = req
-            if caching:
-                self._prefix.record_admit(m, len(req.prompt))
-            if m is not None:
-                req.prefix_hit = (api.PREFIX_HIT_FULL if m.full
-                                  else api.PREFIX_HIT_PARTIAL)
-                req.cached_prefix_tokens = m.tokens
-            if m is not None and m.full:
-                hits.append((req, row, m.entry))
-            else:
-                admitted.append(req)
+        with annotate("serve.schedule"):
+            now = time.perf_counter()
+            while self._queue:
+                nxt = self._queue[0]
+                m = self._prefix.match(nxt.prompt) if caching else None
+                shared = list(m.pages) if m is not None else []
+                if not self._csched.can_admit(len(nxt.prompt),
+                                              shared_pages=len(shared)):
+                    if (self._csched.free_slots > 0 and caching
+                            and self._prefix.evict_one()):
+                        continue
+                    break
+                req = self._queue.pop(0)
+                row = self._csched.admit(req.rid, len(req.prompt),
+                                         req.max_new, shared_pages=shared)
+                self._sched.admit(req)  # lockstep: same smallest free slot
+                assert req.slot == row.slot
+                req.tokens = []
+                active[row.slot] = req
+                self._record_wait(now - req.t_submit)
+                if caching:
+                    self._prefix.record_admit(m, len(req.prompt))
+                if m is not None:
+                    req.prefix_hit = (api.PREFIX_HIT_FULL if m.full
+                                      else api.PREFIX_HIT_PARTIAL)
+                    req.cached_prefix_tokens = m.tokens
+                if m is not None and m.full:
+                    hits.append((req, row, m.entry))
+                else:
+                    admitted.append(req)
         if hits:
             self._restore_hits(hits)
         if not admitted:
             return
         b = self.cfg.max_batch
         page = self._page_size
-        plen = _bucket_len(max(len(r.prompt) for r in admitted))
-        # host inputs packed into one array: tokens (b, plen) | kv_start (b,)
-        packed = np.zeros((b, plen + 1), np.int32)
-        packed[:, plen] = plen
-        dest = np.broadcast_to(
-            kv_pages.TRASH_PAGE * page + np.arange(plen) % page,
-            (b, plen)).astype(np.int64).copy()
-        for r in admitted:
-            n = len(r.prompt)
-            packed[r.slot, plen - n:plen] = r.prompt
-            packed[r.slot, plen] = plen - n
-            # columns a partial hit shares stay with TRASH: their pages are
-            # the cache's, and already hold what this prefill would write
-            shared_toks = (r.cached_prefix_tokens
-                           if r.prefix_hit == api.PREFIX_HIT_PARTIAL else 0)
-            logical = np.arange(shared_toks, n)
-            pages = np.asarray(self._csched.rows[r.slot].pages, np.int64)
-            dest[r.slot, plen - n + shared_toks:] = (
-                pages[logical // page] * page + logical % page)
+        with annotate("serve.schedule"):
+            plen = _bucket_len(max(len(r.prompt) for r in admitted))
+            # host inputs packed into one array: tokens (b, plen) |
+            # kv_start (b,)
+            packed = np.zeros((b, plen + 1), np.int32)
+            packed[:, plen] = plen
+            dest = np.broadcast_to(
+                kv_pages.TRASH_PAGE * page + np.arange(plen) % page,
+                (b, plen)).astype(np.int64).copy()
+            for r in admitted:
+                n = len(r.prompt)
+                packed[r.slot, plen - n:plen] = r.prompt
+                packed[r.slot, plen] = plen - n
+                # columns a partial hit shares stay with TRASH: their pages
+                # are the cache's, and already hold what this prefill
+                # would write
+                shared_toks = (r.cached_prefix_tokens
+                               if r.prefix_hit == api.PREFIX_HIT_PARTIAL
+                               else 0)
+                logical = np.arange(shared_toks, n)
+                pages = np.asarray(self._csched.rows[r.slot].pages, np.int64)
+                dest[r.slot, plen - n + shared_toks:] = (
+                    pages[logical // page] * page + logical % page)
         dev = torch.from_numpy(packed).to(self.device)
         batch = {"tokens": dev[:, :plen], "kv_start": dev[:, plen]}
         self._batch_extras(batch, admitted, extra_inputs)
         scratch = self._scratch_cache(plen)
         self._plen_buckets.add(plen)
         self._record_prefill_flash_tiles(plen)
-        t0 = time.perf_counter()
+        moe0 = moe_counts()
+        t0 = self._clock.start()
         with annotate("serve.prefill_admit"):
             logits0, filled = self.model.prefill(
                 self.params, sh.place_batch(self.mesh, self.rules, batch),
@@ -979,9 +1054,18 @@ class Engine:
             if self._fixed:
                 self._scatter_fixed(filled, slots, slot_ids)
             self._cur[slots] = self._sample(logits0)[slots]
-            self._sync_if_profiling()
-        self._stats["prefill_seconds"] += time.perf_counter() - t0
+        self._clock.stop(self._stats, "prefill_seconds", t0)
+        moe = _moe_delta(moe0)
+        real = sum(len(r.prompt) for r in admitted)
+        count("serve.counts.admit", rows=len(admitted), real=real,
+              computed=b * plen, routed=moe["routed"],
+              expert_rows=moe["expert_rows"])
         self._stats["admission_prefills"] += 1
+        self._stats["prefill_rows"] += len(admitted)
+        self._stats["prefill_prompt_tokens"] += real
+        self._stats["prefill_row_tokens"] += b * plen
+        self._stats["moe_routed"] += moe["routed"]
+        self._stats["moe_expert_rows"] += moe["expert_rows"]
         if caching:
             # Insert while the rows' pages are known-live: the cache takes
             # its own refs.  The logits row is cloned: a view would keep the
@@ -997,7 +1081,7 @@ class Engine:
         (COW), restore the fixed-leaf snapshot, and sample the first token
         from the cached last-position logits (bit-identical under greedy:
         the argmax runs over the exact array the cold path sampled from)."""
-        t0 = time.perf_counter()
+        t0 = self._clock.start()
         page = self._page_size
         b = self.cfg.max_batch
         with annotate("serve.prefix_restore"):
@@ -1013,7 +1097,7 @@ class Engine:
                 # noise for all max_batch rows, this row's taken
                 first = self._sample(entry.logits0[None, :].expand(b, -1))
                 self._cur[row.slot] = first[row.slot]
-        self._stats["prefill_seconds"] += time.perf_counter() - t0
+        self._clock.stop(self._stats, "prefill_seconds", t0)
 
     def _run_chunk(self):
         """One decode chunk over every live row.  Returns host copies of the
@@ -1023,25 +1107,29 @@ class Engine:
         b = self.cfg.max_batch
         chunk = self._chunk
         page = self._page_size
-        width = _bucket_len(max(r.length for r in rows.values()) + chunk)
-        sidx = kv_pages.scatter_indices(rows, b, chunk, page)
-        # host inputs packed into one array: gather idx (b, width) |
-        # kv_start (b,) | budget (b,)
-        packed = np.zeros((b, width + 2), np.int64)
-        packed[:, :width] = kv_pages.gather_indices(rows, b, width, chunk, page)
-        packed[:, width] = width - chunk
-        for slot, row in rows.items():
-            packed[slot, width] = width - chunk - row.length
-            packed[slot, width + 1] = row.budget_left
-        t0 = time.perf_counter()
+        with annotate("serve.schedule"):
+            width = _bucket_len(max(r.length for r in rows.values()) + chunk)
+            sidx = kv_pages.scatter_indices(rows, b, chunk, page)
+            # host inputs packed into one array: gather idx (b, width) |
+            # kv_start (b,) | budget (b,)
+            packed = np.zeros((b, width + 2), np.int64)
+            packed[:, :width] = kv_pages.gather_indices(rows, b, width, chunk,
+                                                        page)
+            packed[:, width] = width - chunk
+            for slot, row in rows.items():
+                packed[slot, width] = width - chunk - row.length
+                packed[slot, width + 1] = row.budget_left
+        moe0 = moe_counts()
+        t0 = self._clock.start()
         with annotate("serve.decode_chunk"):
             dev = torch.from_numpy(packed).to(self.device)
             gidx = dev[:, :width]
             kv_start = dev[:, width].to(torch.int32)
             budget = dev[:, width + 1].to(torch.int32)
             cache = dict(self._fixed)
-            cache["self"] = tuple(self._gather_pool(pool, gidx)
-                                  for pool in self._pools)
+            with annotate("serve.kv_gather"):
+                cache["self"] = tuple(self._gather_pool(pool, gidx)
+                                      for pool in self._pools)
             cur = self._cur
             done = budget <= 0                  # empty slots start finished
             buf = torch.zeros((b, chunk), dtype=torch.int32,
@@ -1064,20 +1152,32 @@ class Engine:
                 cur = self._sample(logits)
                 offset += 1
             sidx_t = torch.from_numpy(sidx)
-            for pool, leaf in zip(self._pools, cache["self"]):
-                self._scatter_pool(pool, sidx_t, leaf.narrow(
-                    leaf.ndim - 3, width - chunk, chunk))
+            with annotate("serve.kv_scatter"):
+                for pool, leaf in zip(self._pools, cache["self"]):
+                    self._scatter_pool(pool, sidx_t, leaf.narrow(
+                        leaf.ndim - 3, width - chunk, chunk))
             # the fixed leaves the chunk's last step returned (the hybrid's
             # SSM and conv states move on every token), as the reference's
             # chunk returns its new fixed tree
             self._fixed = {k: cache[k] for k in self._fixed}
             self._cur = cur
+            end = self._clock.mark_end()
             # The ONE device-to-host transfer of this chunk.
             # analysis: allow(TP001)
             host = torch.cat([buf, lens[:, None]], dim=1).cpu().numpy()
-        self._stats["decode_seconds"] += time.perf_counter() - t0
+        self._clock.stop(self._stats, "decode_seconds", t0, end)
+        self._clock.read(self._stats)
+        moe = _moe_delta(moe0)
+        live = len(rows)
+        count("serve.counts.chunk", rows=live, steps=chunk,
+              slot_steps=b * chunk, tokens=int(host[:, chunk].sum()),
+              routed=moe["routed"], expert_rows=moe["expert_rows"])
         self._stats["device_transfers"] += 1
         self._stats["chunks"] += 1
+        self._stats["decode_live_row_steps"] += live * chunk
+        self._stats["decode_slot_steps"] += b * chunk
+        self._stats["moe_routed"] += moe["routed"]
+        self._stats["moe_expert_rows"] += moe["expert_rows"]
         return host[:, :chunk], host[:, chunk]
 
     # -- prefix-cache control ---------------------------------------------------
@@ -1138,6 +1238,7 @@ class Engine:
             "count": len(self._lat_tok),
             "ttft_s": _percentiles(self._lat_ttft),
             "tok_per_s": _percentiles(self._lat_tok),
+            "queue_wait_s": _percentiles(self._lat_wait),
         }
         out["slots"] = self.cfg.max_batch
         out["slots_admitted"] = self._sched.admitted

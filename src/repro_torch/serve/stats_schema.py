@@ -12,8 +12,13 @@ documents exactly the keys the port's ``Engine.stats()`` emits:
   for: ``decode_unroll`` and ``decode_unroll_source`` (the port's decode
   has no fused device loop to unroll: a chunk is a Python loop of steps),
   and ``mesh`` and ``sharding`` (they come with the distribution layer).
-* ``PORT_KEYS`` — the port's own keys: the torch device the engine runs on
-  and the kernels' launch counts by wrapper.
+* ``PORT_KEYS`` — the port's own keys: the torch device the engine runs on,
+  the kernels' launch counts by wrapper, and the continuous scheduler's
+  counts of the work its admissions and decode chunks did (real against
+  computed prompt tokens, live against computed row-steps, MoE routed
+  choices against expert buffer rows).
+* ``PORT_LATENCY_KEYS`` — the port's own ``latency`` entries: the queue
+  wait of each admitted request.
 * ``PAGES_KEYS`` / ``PREFIX_CACHE_KEYS`` / ``LATENCY_KEYS`` — the nested
   dict sub-schemas.
 * :func:`validate_stats` — runtime check that a stats dict matches the
@@ -25,9 +30,9 @@ import dataclasses
 from typing import Dict, List
 
 #: bump on any key add/remove/rename (v1 = the port's first versioned set;
-#: v2 adds the tuning provenance; the JAX package numbers its own schema
-#: apart)
-SCHEMA_VERSION = 2
+#: v2 adds the tuning provenance; v3 the admission and chunk counts and
+#: the queue wait; the JAX package numbers its own schema apart)
+SCHEMA_VERSION = 3
 
 #: presence conditions
 ALWAYS = "always"
@@ -67,17 +72,39 @@ STATS_SCHEMA: Dict[str, StatKey] = {
                                 "device->host fetches (one per chunk/wave)"),
     "cache_allocs": StatKey("traffic", ALWAYS,
                             "KV pool/cache allocations (1 per engine)"),
+    "prefill_rows": StatKey("traffic", ALWAYS,
+                            "rows the admission prefills computed for "
+                            "admitted requests"),
+    "prefill_prompt_tokens": StatKey("traffic", ALWAYS,
+                                     "admitted prompts' tokens (the real "
+                                     "work of the admission prefills)"),
+    "prefill_row_tokens": StatKey("traffic", ALWAYS,
+                                  "row-tokens the admission prefills "
+                                  "computed (max_batch x bucket each)"),
+    "decode_live_row_steps": StatKey("traffic", ALWAYS,
+                                     "live rows x steps of each chunk"),
+    "decode_slot_steps": StatKey("traffic", ALWAYS,
+                                 "rows x steps the chunks computed "
+                                 "(max_batch x chunk each)"),
+    "moe_routed": StatKey("traffic", ALWAYS,
+                          "MoE (token, choice) pairs routed in the "
+                          "admission prefills and decode chunks"),
+    "moe_expert_rows": StatKey("traffic", ALWAYS,
+                               "MoE expert buffer rows they computed, "
+                               "padding included"),
     # -- timing ----------------------------------------------------------
     "prefill_seconds": StatKey("timing", ALWAYS,
-                               "wall-clock in prefill (incl. cache restore)"),
+                               "device time in prefill (incl. cache "
+                               "restore); host clock on the CPU"),
     "decode_seconds": StatKey("timing", ALWAYS,
-                              "wall-clock in fused decode"),
+                              "device time in fused decode; host clock "
+                              "on the CPU"),
     "total_seconds": StatKey("timing", ALWAYS,
                              "wall-clock across generate() calls"),
     # -- latency percentiles --------------------------------------------
     "latency": StatKey("latency", ALWAYS,
-                       "per-request TTFT / tok-per-s percentiles "
-                       "(LATENCY_KEYS sub-schema)"),
+                       "per-request TTFT / tok-per-s / queue-wait "
+                       "percentiles (LATENCY_KEYS sub-schema)"),
     # -- scheduler -------------------------------------------------------
     "scheduler": StatKey("scheduler", ALWAYS,
                          "'continuous' or 'wave' (the resolved one)"),
@@ -149,7 +176,10 @@ STATS_SCHEMA: Dict[str, StatKey] = {
 NOT_PORTED_KEYS = ("decode_unroll", "decode_unroll_source")
 
 #: the port's own keys (not in the JAX schema)
-PORT_KEYS = ("device", "kernel_launches")
+PORT_KEYS = ("device", "kernel_launches", "prefill_rows",
+             "prefill_prompt_tokens", "prefill_row_tokens",
+             "decode_live_row_steps", "decode_slot_steps", "moe_routed",
+             "moe_expert_rows")
 
 #: nested sub-schema: stats()["pages"]
 PAGES_KEYS = [
@@ -164,8 +194,12 @@ PREFIX_CACHE_KEYS = [
     "prefill_tokens_saved", "prefill_tokens_computed", "pages_write_skipped",
 ]
 
+#: the port's own stats()["latency"] entries: admission time minus submit
+#: time of each admitted request (continuous scheduler; None until one)
+PORT_LATENCY_KEYS = ["queue_wait_s"]
+
 #: nested sub-schema: stats()["latency"] (percentile dicts use PCTL_KEYS)
-LATENCY_KEYS = ["count", "ttft_s", "tok_per_s"]
+LATENCY_KEYS = ["count", "ttft_s", "tok_per_s"] + PORT_LATENCY_KEYS
 PCTL_KEYS = ["p50", "p95", "p99"]
 
 
@@ -214,7 +248,7 @@ def validate_stats(stats: Dict[str, object]) -> List[str]:
                 "latency sub-schema drift: "
                 f"{sorted(set(lat) ^ set(LATENCY_KEYS))}")
         else:
-            for sub in ("ttft_s", "tok_per_s"):
+            for sub in ("ttft_s", "tok_per_s", *PORT_LATENCY_KEYS):
                 val = lat[sub]
                 if isinstance(val, dict) and set(val) != set(PCTL_KEYS):
                     problems.append(f"latency.{sub} percentile keys drift")

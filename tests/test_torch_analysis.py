@@ -448,7 +448,7 @@ def test_st001_live_port_engine_matches_its_schema():
     from repro_torch.analysis.stats_checks import check_stats_schema
     from repro_torch.serve.stats_schema import STATS_SCHEMA
     assert check_stats_schema(REPO) == []
-    assert len(STATS_SCHEMA) == 38
+    assert len(STATS_SCHEMA) == 45
 
 
 # ---------------------------------------------------------------------------
@@ -606,7 +606,7 @@ def test_cli_exits_1_on_a_new_finding(tmp_path):
     assert "leak.py:2: TP001" in proc.stdout
     proc = _cli(["pragmas"], cwd=str(tmp_path),
                 pythonpath=str(tmp_path / "src"))
-    assert proc.returncode == 0 and "9 live, 0 stale" in proc.stdout
+    assert proc.returncode == 0 and "8 live, 0 stale" in proc.stdout
 
 
 @pytest.mark.parametrize("args", [["ir", "--bogus"], ["lint", "--bogus"], []])

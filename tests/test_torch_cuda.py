@@ -440,6 +440,33 @@ def test_cuda_engine_runs_through_both_kernels(cuda):
     assert st["device_transfers"] == st["chunks"]
 
 
+def test_cuda_engine_times_prefill_and_decode_on_the_device(cuda):
+    """``prefill_seconds`` / ``decode_seconds`` are the device's time, from
+    CUDA events read after each chunk's host copy: each positive, both
+    within the drain's wall time, none left unread at its end."""
+    import time
+
+    from repro_torch.configs.catalog import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    model = build_model(get_config("olmoe-1b-7b").reduced())
+    params = model.init(1, device=cuda)
+    prompts = [[(i * 7 + 3) % 256 for i in range(n)] for n in (37, 5, 64)]
+    eng = Engine(model, params, ServeConfig(max_batch=2, max_len=128))
+    eng.generate(prompts, 6)                   # builds, allocator
+    before = eng.stats()
+    t0 = time.perf_counter()
+    eng.generate(prompts, 6)
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    pre = st["prefill_seconds"] - before["prefill_seconds"]
+    dec = st["decode_seconds"] - before["decode_seconds"]
+    assert pre > 0.0 and dec > 0.0
+    assert pre + dec <= wall
+    assert eng._clock._open == []
+
+
 def test_cuda_engine_bf16_goes_through_decode_and_wgmma(cuda):
     """Reduced llama in bf16: every GEMM of the serve path runs through the
     decode or the wgmma kernel, none through WMMA or FMA."""

@@ -462,9 +462,11 @@ def test_schema_is_jax_schema_minus_not_ported_plus_port_keys():
     for k in port & jax_keys:
         assert stats_schema.STATS_SCHEMA[k].when == \
             jax_schema.STATS_SCHEMA[k].when, k
-    for name in ("PAGES_KEYS", "PREFIX_CACHE_KEYS", "LATENCY_KEYS",
-                 "PCTL_KEYS"):
+    for name in ("PAGES_KEYS", "PREFIX_CACHE_KEYS", "PCTL_KEYS"):
         assert getattr(stats_schema, name) == getattr(jax_schema, name)
+    # the port's latency adds the queue wait to the reference's entries
+    assert stats_schema.LATENCY_KEYS == (jax_schema.LATENCY_KEYS
+                                         + stats_schema.PORT_LATENCY_KEYS)
     groups = stats_schema.groups()
     assert sorted(k for ks in groups.values() for k in ks) == sorted(port)
     for sched in ("continuous", "wave"):

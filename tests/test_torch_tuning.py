@@ -732,7 +732,7 @@ def test_cpu_engine_reports_h100_provenance(scheduler, tmp_path, monkeypatch):
         assert res["tile"].startswith("decode:")
     assert st["prefill_flash_lookups"]["8x8x16"]["source"] == "exact"
     assert st["registry_hit_stats"]["exact"] >= len(shapes)
-    assert st["schema_version"] == stats_schema.SCHEMA_VERSION == 2
+    assert st["schema_version"] == stats_schema.SCHEMA_VERSION == 3
     assert stats_schema.validate_stats(st) == []
     if scheduler == "continuous":
         assert (st["page_size"], st["page_size_source"]) == (16, "fallback")
